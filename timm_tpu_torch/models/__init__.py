@@ -1,0 +1,8 @@
+from ._factory import create_model
+from ._jax_convert import convert_jax_state_dict, load_jax_state_dict
+from ._pretrained import DefaultCfg, PretrainedCfg
+from ._registry import (
+    generate_default_cfgs, get_pretrained_cfg, is_model, list_models, model_entrypoint,
+    register_model, split_model_name_tag,
+)
+from .vision_transformer import Block, VisionTransformer
