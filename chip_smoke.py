@@ -5,12 +5,15 @@ Run from the root of the repository on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the sources in the checkout, holds
-each kernel against its plain PyTorch version on the card, checks
-ViT-B/16 in bf16 on the card against the same weights in fp32 on the CPU,
-and serves ViT-B/16 through the port's InferenceEngine. Each phase prints
-one JSON line; then come the kernel summary line, the card's name and power
-limit as nvidia-smi gives them, and the last line
+It builds the port's CUDA kernels from the sources in the checkout (one
+nvcc per source, side by side), holds each kernel against its plain PyTorch
+version on the card, checks ViT-B/16 in bf16 on the card against the same
+weights in fp32 on the CPU, serves ViT-B/16 through the port's
+InferenceEngine, and trains ViT-B/16 through the port's ClassificationTask
+(AdamW through the fused AdamW + EMA kernel), with its gradients checked
+against the CPU in fp32 and a profiler breakdown of the train step. Each
+phase prints one JSON line; then come the kernel summary line, the card's
+name and power limit as nvidia-smi gives them, and the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line; with no CUDA device, or outside the repository, it exits
 non-zero at once. It imports nothing of JAX or of the JAX package.
@@ -32,11 +35,19 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
-PARITY_TOL = 2e-2          # max abs, kernel vs plain (the TPU registry's parity_tol)
+PEAK_FP32_FLOPS = 67e12    # outside the tensor cores
+PARITY_TOL = 2e-2          # max abs, flash kernel vs plain (the TPU registry's parity_tol)
+# fused_adamw kernel vs plain (the TPU registry's parity_tol): max abs on p and
+# ema; m and v, far below 1, relative to their largest magnitude
+ADAMW_TOL = 1e-6
 MODEL_REL_L2_TOL = 2e-2    # bf16 on the card vs fp32 on the CPU
 SERVE_REL_L2_TOL = 2e-2    # a served row vs the direct bf16 forward of its image
+GRAD_REL_L2_TOL = 5e-2     # one step's bf16 gradients on the card vs fp32 on the CPU
 SERVE_BUCKETS = (1, 4, 16, 64)
 SERVE_BURSTS = (1, 3, 10, 64, 64, 40, 2, 16)  # 200 requests; every bucket dispatches
+KERNELS = ('flash_attention', 'fused_adamw')
+ADAMW_HP = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.05)
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARMUP_STEPS, TRAIN_LR = 64, 20, 2, 3e-4
 
 
 def emit(obj) -> None:
@@ -113,19 +124,29 @@ def _ptxas_summary(log: str):
 
 
 def phase_build():
+    """One nvcc per kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
     from timm_tpu_torch.kernels import kernel_smem_bytes
     from timm_tpu_torch.kernels._build import load_library
-    built = load_library('flash_attention')
-    entries = _ptxas_summary(built.log)
-    emit({'phase': 'build', 'kernel': 'flash_attention', 'built': built.built,
-          'nvcc_seconds': built.build_seconds, 'library': os.path.relpath(built.path, HERE),
-          'entries': len(entries),
-          'max_registers': max((e.get('registers', 0) for e in entries), default=None),
-          'spill_bytes': sum(e.get('spill_stores', 0) + e.get('spill_loads', 0) for e in entries),
-          'smem_bytes_bf16_d64': kernel_smem_bytes(torch.bfloat16, 64),
-          'smem_bytes_bf16_d256': kernel_smem_bytes(torch.bfloat16, 256),
-          'ptxas': entries})
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = dict(zip(KERNELS, pool.map(load_library, KERNELS)))
+    wall = time.perf_counter() - t0
+    for name, lib in built.items():
+        entries = _ptxas_summary(lib.log)
+        row = {'phase': 'build', 'kernel': name, 'built': lib.built,
+               'nvcc_seconds': lib.build_seconds, 'build_wall_seconds_all': wall,
+               'library': os.path.relpath(lib.path, HERE), 'entries': len(entries),
+               'max_registers': max((e.get('registers', 0) for e in entries), default=None),
+               'spill_bytes': sum(e.get('spill_stores', 0) + e.get('spill_loads', 0)
+                                  for e in entries),
+               'ptxas': entries}
+        if name == 'flash_attention':
+            row['smem_bytes_bf16_d64'] = kernel_smem_bytes(torch.bfloat16, 64)
+            row['smem_bytes_bf16_d256'] = kernel_smem_bytes(torch.bfloat16, 256)
+        emit(row)
 
 
 def _attention_case(name, B, H, N, D, valid, seed):
@@ -182,6 +203,111 @@ def phase_kernels():
         check(err <= PARITY_TOL, f'{c["name"]}: kernel vs plain max abs err {err} > {PARITY_TOL}')
     emit({'phase': 'kernels', 'kernel': 'flash_attention',
           'replaces': 'timm_tpu/kernels/flash_attention.py:79 (_fwd_kernel)', 'cases': rows})
+    return rows
+
+
+def _adamw_bound(n: int, mu_bytes: int):
+    """Least time for one update of n parameters: read p, g, m, v, ema and
+    write p, m, v, ema once; about 20 fp32 operations per parameter."""
+    nbytes = n * (4 * 2 + 4 + mu_bytes * 2 + 4 * 2 + 4 * 2)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, 20 * n / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def phase_fused_adamw():
+    """The fused AdamW + EMA kernel against its plain version on ViT-B/16's
+    real leaf set and weight-decay mask (the optimizer's flat layout): 3
+    updates from one state with a clip factor, fp32 and bf16 m; a NaN step
+    must change nothing; then kernel, plain, library and bound times."""
+    import torch
+    import timm_tpu_torch
+    from timm_tpu_torch.kernels import fused_adamw, fused_adamw_reference
+    from timm_tpu_torch.optim import create_optimizer_v2
+    model = timm_tpu_torch.create_model('vit_base_patch16_224', seed=0, device='cuda')
+    opt = create_optimizer_v2(model, opt='adamw', lr=1e-3, weight_decay=0.05)
+    n, n_decay = opt.flat_param.numel(), opt.n_decay
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    p0 = opt.flat_param.clone()
+    grads = [torch.randn(n, generator=gen, device='cuda').mul_(1e-3) for _ in range(3)]
+    m0 = torch.randn(n, generator=gen, device='cuda').mul_(1e-4)
+    v0 = torch.rand(n, generator=gen, device='cuda').mul_(1e-6)  # ~g^2 for |g| ~ 1e-3
+    scale = torch.tensor(0.5, device='cuda')
+    kw = dict(lr=1e-3, n_decay=n_decay, grad_scale=scale, **ADAMW_HP)
+    rows = []
+    for mu in (torch.float32, torch.bfloat16):
+        state = {side: [p0.clone(), m0.to(mu, copy=True), v0.clone(), p0.clone(),
+                        torch.zeros((), dtype=torch.int32, device='cuda')]
+                 for side in ('kernel', 'plain')}
+        for step in range(3):
+            d = 0.0 if step == 0 else 0.9998
+            kp, km, kv, ke, kc = state['kernel']
+            fused_adamw(kp, grads[step], km, kv, ke, kc, ema_decay=d, **kw)
+            rp, rm, rv, re, rc = state['plain']
+            fused_adamw_reference(rp, grads[step], rm, rv, re, rc, ema_decay=d, **kw)
+        torch.cuda.synchronize()
+        k, r = state['kernel'], state['plain']
+        errs = {name: float((k[i].float() - r[i].float()).abs().max())
+                for i, name in enumerate(('p', 'm', 'v', 'ema'))}
+        # p and ema are held to ADAMW_TOL absolute; m and v, whose values are
+        # far below 1, to ADAMW_TOL of their largest magnitude.
+        scale_of = {name: float(r[i].float().abs().max()) for i, name in ((1, 'm'), (2, 'v'))}
+        tols = {'p': ADAMW_TOL, 'ema': ADAMW_TOL, 'v': ADAMW_TOL * scale_of['v'],
+                'm': ADAMW_TOL * scale_of['m']}
+        # m within one bf16 ulp (2^-7 of its magnitude) when stored in bf16
+        ulp = (r[1].float().abs() * 2.0 ** -7).clamp_min(2.0 ** -133)
+        m_ok = bool(((k[1].float() - r[1].float()).abs() <= ulp).all()) \
+            if mu == torch.bfloat16 else errs['m'] <= tols['m']
+        bad = grads[0].clone()
+        bad[12345] = float('nan')
+        keep = [t.clone() for t in k]
+        fused_adamw(k[0], bad, k[1], k[2], k[3], k[4], ok=torch.isfinite(bad).all(), **kw)
+        torch.cuda.synchronize()
+        nan_step_kept = all(torch.equal(a, b) for a, b in zip(k, keep))
+
+        kernel_ms = time_ms(lambda: fused_adamw(k[0], grads[0], k[1], k[2], k[3], k[4],
+                                                ema_decay=0.9998, **kw), iters=20, warmup=3)
+        plain_ms = time_ms(lambda: fused_adamw_reference(r[0], grads[0], r[1], r[2], r[3], r[4],
+                                                         ema_decay=0.9998, **kw),
+                           iters=5, warmup=1)
+        library_ms = None
+        if mu == torch.float32:
+            # one PyTorch call for the same update: torch's fused AdamW over
+            # the leaves (decay and no-decay groups), then the EMA lerp. It
+            # rounds differently (eps and decay order), so it is timed only.
+            mask = opt.decay_mask()
+            leaves = {name: torch.nn.Parameter(t.clone()) for name, t in opt.views(p0).items()}
+            for (name, leaf), g in zip(leaves.items(), opt.views(grads[0]).values()):
+                leaf.grad = g.clone()
+            ema = [t.clone() for t in leaves.values()]
+            lib = torch.optim.AdamW(
+                [{'params': [t for nm, t in leaves.items() if mask[nm]], 'weight_decay': 0.05},
+                 {'params': [t for nm, t in leaves.items() if not mask[nm]], 'weight_decay': 0.0}],
+                lr=1e-3, betas=(0.9, 0.999), eps=1e-8, fused=True)
+            params = list(leaves.values())
+
+            @torch.no_grad()
+            def library_step():
+                lib.step()
+                torch._foreach_lerp_(ema, params, 1 - 0.9998)
+            library_ms = time_ms(library_step, iters=20, warmup=3)
+            del leaves, ema, lib, params
+        bound_ms, bound_by = _adamw_bound(n, 2 if mu == torch.bfloat16 else 4)
+        rows.append({'mu_dtype': str(mu).replace('torch.', ''), 'n': n, 'n_decay': n_decay,
+                     'max_abs_err': errs, 'tol': tols, 'max_abs': scale_of,
+                     'm_within_one_ulp_or_tol': m_ok,
+                     'nan_step_bit_identical': nan_step_kept, 'count_after': int(k[4]),
+                     'kernel_ms': kernel_ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
+                     'bound_ms': bound_ms, 'bound_by': bound_by})
+        for name in ('p', 'v', 'ema'):
+            check(errs[name] <= tols[name],
+                  f'fused_adamw {mu}: {name} max abs err {errs[name]} > {tols[name]}')
+        check(m_ok, f'fused_adamw {mu}: m off by more than its tolerance ({errs["m"]})')
+        check(nan_step_kept, f'fused_adamw {mu}: a NaN step changed the state')
+        del state, k, r, keep
+    emit({'phase': 'kernels', 'kernel': 'fused_adamw',
+          'replaces': 'timm_tpu/kernels/fused_adamw.py:54 (_kernel)', 'cases': rows})
+    del model, opt, p0, grads, m0, v0
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -313,6 +439,169 @@ def phase_breakdown(model):
           'top_kernels': [{'kernel': k[:120], 'ms': v} for k, v in top]})
 
 
+def _train_task(seed: int, device, dtype, drop_path_rate: float, **task_kw):
+    import timm_tpu_torch
+    from timm_tpu_torch.loss import LabelSmoothingCrossEntropy
+    model = timm_tpu_torch.create_model('vit_base_patch16_224', dtype=dtype, seed=seed,
+                                        drop_path_rate=drop_path_rate, device=device)
+    opt = timm_tpu_torch.create_optimizer_v2(model, opt='adamw', lr=TRAIN_LR, weight_decay=0.05)
+    return timm_tpu_torch.ClassificationTask(
+        model, optimizer=opt, train_loss_fn=LabelSmoothingCrossEntropy(0.1), seed=seed, **task_kw)
+
+
+def _train_batch(n: int, seed: int, device):
+    import torch
+    labels = np.random.default_rng(seed).integers(0, 1000, n)
+    return {'input': torch.from_numpy(_images(n, seed=seed)).to(device),
+            'target': torch.from_numpy(labels).to(device)}
+
+
+def phase_train():
+    """The port's training path: ClassificationTask trains ViT-B/16 (bf16
+    compute, fp32 parameters) with AdamW, the weight-decay mask, clipping,
+    EMA, a cosine schedule with warmup and the non-finite guard, 20 steps on
+    one fixed batch. The launch counts are read around this run only."""
+    import torch
+    import timm_tpu_torch
+    from timm_tpu_torch.kernels import flash_attention, fused_adamw
+    task = _train_task(0, 'cuda', torch.bfloat16, 0.1, clip_grad=1.0)
+    task.setup_ema(decay=0.9998)
+    sched, _ = timm_tpu_torch.create_scheduler_v2(
+        TRAIN_LR, 'cosine', num_epochs=TRAIN_STEPS, warmup_epochs=3, warmup_lr=1e-6)
+    batch = _train_batch(TRAIN_BATCH, 4, 'cuda')
+    depth = len(task.model.blocks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    flash_attention.launches = 0
+    fused_adamw.launches = 0
+    metrics, flash_steps, adamw_steps, lrs = [], [], [], []
+    t0 = time.perf_counter()
+    for step in range(TRAIN_STEPS):
+        if step == TRAIN_WARMUP_STEPS:
+            start.record()
+        f0, a0 = flash_attention.launches, fused_adamw.launches
+        lrs.append(sched.step(step)[0])
+        metrics.append(task.train_step(batch, lr=lrs[-1], step=step + 1))
+        flash_steps.append(flash_attention.launches - f0)
+        adamw_steps.append(fused_adamw.launches - a0)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {'flash_attention': flash_attention.launches, 'fused_adamw': fused_adamw.launches}
+    step_ms = start.elapsed_time(end) / (TRAIN_STEPS - TRAIN_WARMUP_STEPS)
+    losses = [float(m['loss']) for m in metrics]
+    last = metrics[-1]
+    emit({'phase': 'train', 'model': 'vit_base_patch16_224', 'dtype': 'bfloat16',
+          'batch': TRAIN_BATCH, 'steps': TRAIN_STEPS, 'drop_path_rate': 0.1,
+          'losses': losses, 'grad_norms': [float(m['grad_norm']) for m in metrics], 'lrs': lrs,
+          'step_ms': step_ms, 'img_per_s': TRAIN_BATCH / step_ms * 1e3, 'wall_s': wall,
+          'peak_memory_gb': torch.cuda.max_memory_allocated() / 2 ** 30,
+          'nonfinite_count': int(last['nonfinite_count']),
+          'nonfinite_total': int(last['nonfinite_total']),
+          'optimizer_count': int(task.optimizer.count),
+          'flash_launches_per_step': flash_steps, 'fused_adamw_launches_per_step': adamw_steps,
+          'launches': launches})
+    check(all(np.isfinite(losses)), f'train: non-finite loss in {losses}')
+    check(losses[-1] < losses[0], f'train: last loss {losses[-1]} not below first {losses[0]}')
+    check(adamw_steps == [1] * TRAIN_STEPS, f'train: fused_adamw launches per step {adamw_steps}')
+    check(flash_steps == [depth] * TRAIN_STEPS, f'train: flash launches per step {flash_steps}')
+    check(int(last['nonfinite_total']) == 0 and int(task.optimizer.count) == TRAIN_STEPS,
+          'train: the guard skipped a step')
+    return launches, task, batch
+
+
+def phase_train_vs_cpu():
+    """One step's gradients of ViT-B/16, bf16 on the card against the same
+    seeded weights in fp32 on the CPU, batch 8, drop_path 0."""
+    import torch
+    from timm_tpu_torch.kernels import flash_attention
+    batch = _train_batch(8, 5, 'cpu')
+    grads = {}
+    for device, dtype in (('cuda', torch.bfloat16), ('cpu', None)):
+        task = _train_task(0, device, dtype, 0.0, nonfinite_guard=False)
+        before = flash_attention.launches
+        t0 = time.perf_counter()
+        task.train_step(batch, lr=0.0, step=1)
+        grads[device] = (task.optimizer.flat_grad.float().cpu(), flash_attention.launches - before,
+                         time.perf_counter() - t0)
+        del task
+    g_card, launches, _ = grads['cuda']
+    g_cpu, _, cpu_s = grads['cpu']
+    err = float((g_card - g_cpu).norm() / g_cpu.norm())
+    emit({'phase': 'train_vs_cpu', 'model': 'vit_base_patch16_224', 'batch': 8,
+          'grad_rel_l2_bf16_card_vs_fp32_cpu': err, 'tol': GRAD_REL_L2_TOL,
+          'finite': bool(torch.isfinite(g_card).all()), 'flash_launches_card_step': launches,
+          'cpu_fp32_step_seconds': cpu_s})
+    check(bool(torch.isfinite(g_card).all()), 'train_vs_cpu: non-finite gradients on the card')
+    check(err <= GRAD_REL_L2_TOL, f'train_vs_cpu: gradient rel L2 {err} > {GRAD_REL_L2_TOL}')
+    check(launches == 12, f'train_vs_cpu: {launches} flash launches in one step')
+    torch.cuda.empty_cache()
+
+
+def phase_train_breakdown(task, batch):
+    """Where the time of a train step goes: device time by kernel from
+    torch.profiler over 3 steps, the device's idle share of the host wall
+    time, and the shares of the flash forward, the attention backward (the
+    named range around the plain recompute) and fused_adamw; and the
+    attention backward of one layer timed alone with CUDA events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from timm_tpu_torch.kernels import flash_attention_backward
+    reps = 3
+    task.train_step(batch, lr=1e-5, step=TRAIN_STEPS + 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(reps):
+            task.train_step(batch, lr=1e-5, step=TRAIN_STEPS + 2 + i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kernels, attn_bwd = {}, 0.0
+    for e in prof.events():
+        if e.name == 'flash_attention_backward':
+            # the named range: its CPU event sums the device time of the
+            # kernels it launched; its mirror on the device timeline is a
+            # span, not a kernel, and stays out of the busy time
+            if e.device_type != DeviceType.CUDA:
+                attn_bwd += e.device_time_total / 1e3 / reps
+        elif e.device_type == DeviceType.CUDA and not getattr(e, 'is_user_annotation', False):
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3 / reps
+    busy = sum(kernels.values())
+
+    def share(part):
+        return part / busy if kernels else 'not measured'
+    flash = sum(v for k, v in kernels.items() if 'flash_fwd_kernel' in k)
+    adamw = sum(v for k, v in kernels.items() if 'fused_adamw_kernel' in k)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    # one layer's attention backward at the train step's shapes, alone
+    g = torch.Generator(device='cuda').manual_seed(7)
+    q, k, v, do = (torch.randn(TRAIN_BATCH, 12, 197, 64, generator=g, device='cuda')
+                   .to(torch.bfloat16) for _ in range(4))
+    bwd_ms = time_ms(lambda: flash_attention_backward(q, k, v, None, 64 ** -0.5, do),
+                     iters=20, warmup=3)
+    # its least time: q, k, v, do read and dq, dk, dv written once (bf16);
+    # five N x N x D products (scores, dv, dp, dq, dk) in fp32, as JAX does
+    nbytes = 7 * q.numel() * 2
+    flops = 5 * 2 * TRAIN_BATCH * 12 * 197 * 197 * 64
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    emit({'phase': 'train_breakdown', 'model': 'vit_base_patch16_224', 'batch': TRAIN_BATCH,
+          'wall_ms_per_step': wall_ms,
+          'device_ms_per_step': busy if kernels else 'not measured',
+          'idle_share': 1.0 - busy / wall_ms if kernels else 'not measured',
+          'flash_fwd_ms': flash, 'flash_fwd_share': share(flash),
+          'attention_bwd_ms': attn_bwd if attn_bwd else 'not measured',
+          'attention_bwd_share': share(attn_bwd) if attn_bwd else 'not measured',
+          'fused_adamw_ms': adamw, 'fused_adamw_share': share(adamw),
+          'attention_bwd_ms_per_layer_alone': bwd_ms,
+          'attention_bwd_bound_ms_per_layer': max(t_bytes, t_ops),
+          'attention_bwd_bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+          'top_kernels': [{'kernel': k[:120], 'ms': v} for k, v in top]})
+    return bwd_ms
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -331,23 +620,41 @@ def main() -> int:
         device = phase_device()
         phase_build()
         rows = phase_kernels()
+        adamw_rows = phase_fused_adamw()
         phase_model()
         serve_launches, served_model = phase_serve()
         phase_breakdown(served_model)
+        del served_model
+        train_launches, task, batch = phase_train()
+        phase_train_vs_cpu()
+        attn_bwd_ms = phase_train_breakdown(task, batch)
     except Exception:
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
         return 1
-    main_row = rows[0]
+    main_row, adamw_row = rows[0], adamw_rows[0]  # bucket-64 attention; fp32-m AdamW
     emit({'kernels': [{
         'name': 'flash_attention', 'route': 'cuda',
         'source': 'timm_tpu_torch/kernels/csrc/flash_attention.cu',
         'replaces': 'timm_tpu/kernels/flash_attention.py:79',
-        'launches': serve_launches,
+        'launches': serve_launches + train_launches['flash_attention'],
+        'launches_by_path': {'serve': serve_launches, 'train': train_launches['flash_attention']},
         'max_abs_err': max(r['max_abs_err'] for r in rows),
         'ms': main_row['kernel_ms'], 'plain_ms': main_row['plain_ms'],
         'bound_ms': main_row['bound_ms'], 'bound_by': main_row['bound_by'],
         'library_ms': main_row['library_ms'],
+        'backward_plain_ms_per_layer': attn_bwd_ms,
+    }, {
+        'name': 'fused_adamw', 'route': 'cuda',
+        'source': 'timm_tpu_torch/kernels/csrc/fused_adamw.cu',
+        'replaces': 'timm_tpu/kernels/fused_adamw.py:54',
+        'launches': train_launches['fused_adamw'],
+        'launches_by_path': {'train': train_launches['fused_adamw']},
+        'max_abs_err': max(max(r['max_abs_err'][k] for k in ('p', 'v', 'ema'))
+                           for r in adamw_rows),
+        'ms': adamw_row['kernel_ms'], 'plain_ms': adamw_row['plain_ms'],
+        'bound_ms': adamw_row['bound_ms'], 'bound_by': adamw_row['bound_by'],
+        'library_ms': adamw_row['library_ms'],
     }], 'seconds': time.perf_counter() - t0})
     print(device['nvidia_smi'], flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': device['name'],

@@ -101,8 +101,11 @@ def test_wrapper_rejects_gqa_wide_heads_and_grad():
     wide = torch.zeros(1, 1, 8, 512)
     with pytest.raises(ValueError, match='up to 256'):
         flash_attention(wide, wide, wide)
-    with pytest.raises(RuntimeError, match='no backward'):
-        flash_attention(tq.requires_grad_(True), tk, tv)
+    # inputs that require grad are taken: the wrapper is an autograd.Function
+    out = flash_attention(tq.requires_grad_(True), tk, tv)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert tq.grad.shape == tq.shape
 
 
 def test_build_targets_sm90a_and_rehashes_on_edit(tmp_path):

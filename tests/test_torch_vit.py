@@ -196,6 +196,10 @@ def test_port_imports_no_jax():
     for dirpath, _, names in os.walk(os.path.join(REPO_ROOT, 'timm_tpu_torch')):
         files += [os.path.join(dirpath, n) for n in names if n.endswith('.py')]
     assert len(files) > 20
+    scanned = {os.path.relpath(os.path.dirname(f), REPO_ROOT) for f in files}
+    for sub in ('kernels', 'layers', 'loss', 'models', 'optim', 'resilience', 'scheduler',
+                'serve', 'task', 'utils'):
+        assert os.path.join('timm_tpu_torch', sub) in scanned, sub
     offenders = {}
     for f in files:
         with open(f, encoding='utf-8') as fh:

@@ -6,4 +6,7 @@ Every TPU kernel on a ported path is a CUDA kernel written by hand
 (``timm_tpu_torch/kernels``), beside its plain PyTorch version.
 """
 from .models import create_model, is_model, list_models
+from .optim import create_optimizer_v2
+from .scheduler import create_scheduler_v2
 from .serve import InferenceEngine
+from .task import ClassificationTask, TrainingTask

@@ -45,7 +45,8 @@ class BuiltLibrary:
 
 
 _LIBS: Dict[str, BuiltLibrary] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()                 # guards _LOCKS
+_LOCKS: Dict[str, threading.Lock] = {}  # one per kernel: builds of two kernels run side by side
 
 
 def find_nvcc() -> str:
@@ -77,8 +78,11 @@ def _digest(source: Path) -> str:
 
 def load_library(name: str) -> BuiltLibrary:
     """Build (if needed) and load ``csrc/<name>.cu``; raises if nvcc is
-    missing or the build fails, with the compiler's output."""
+    missing or the build fails, with the compiler's output. Calls for
+    different kernels from different threads build in parallel."""
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         source = SOURCE_DIR / f'{name}.cu'

@@ -14,9 +14,17 @@ v of one shape), D <= 256; the kernel is built for D in ``KERNEL_HEAD_DIMS``
 and bf16, fp16 or fp32.
 
 ``flash_attention`` takes the plain version for CPU tensors only. For CUDA
-tensors it launches the kernel or raises: there is no fallback. It has no
-backward yet, so it raises when an input requires grad. Each kernel launch
-adds one to ``flash_attention.launches``.
+tensors it launches the kernel or raises: there is no fallback. Each kernel
+launch adds one to ``flash_attention.launches``.
+
+Gradients: ``flash_attention`` is a ``torch.autograd.Function``. Its
+backward is the JAX package's ``_flash_bwd_rule``
+(``timm_tpu/kernels/flash_attention.py:161-177``) written in PyTorch: an
+exact fp32 recompute of the scores and softmax from the saved q, k, v and
+key mask, then dv, dp, ds, dq and dk, each cast to its input's dtype. The
+JAX package computes that backward outside any Pallas kernel too (XLA under
+``jax.custom_vjp``), so on the card it runs as plain PyTorch here; a
+hand-written backward kernel is later speed work.
 """
 from __future__ import annotations
 
@@ -28,8 +36,8 @@ import torch
 
 from ._build import load_library
 
-__all__ = ['KERNEL_HEAD_DIMS', 'flash_attention', 'flash_attention_reference',
-           'kernel_smem_bytes']
+__all__ = ['KERNEL_HEAD_DIMS', 'flash_attention', 'flash_attention_backward',
+           'flash_attention_reference', 'kernel_smem_bytes']
 
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -131,6 +139,44 @@ def _launch(q, k, v, key_mask, scale: float):
     return out
 
 
+def flash_attention_backward(q, k, v, key_mask, scale: float, grad_out):
+    """``_flash_bwd_rule`` of the JAX package: dq, dk, dv from an fp32
+    recompute of the attention, each cast to its input's dtype."""
+    qf = q.float() * scale
+    kf = k.float()
+    vf = v.float()
+    s = qf @ kf.transpose(-2, -1)
+    if key_mask is not None:
+        s = torch.where(key_mask[:, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    gf = grad_out.float()
+    dv = p.transpose(-2, -1) @ gf
+    dp = gf @ vf.transpose(-2, -1)
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    dq = (ds @ kf) * scale
+    dk = ds.transpose(-2, -1) @ qf
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, scale):
+        ctx.save_for_backward(q, k, v, key_mask)
+        ctx.scale = scale
+        if q.device.type == 'cpu':
+            return flash_attention_reference(
+                q, k, v, None if key_mask is None else key_mask[:, None, None, :], scale)
+        return _launch(q, k, v, key_mask, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, key_mask = ctx.saved_tensors
+        # a named range, so a profiler trace can attribute the recompute's kernels
+        with torch.profiler.record_function('flash_attention_backward'):
+            dq, dk, dv = flash_attention_backward(q, k, v, key_mask, ctx.scale, grad_out)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, mask=None, scale: Optional[float] = None):
     """(B, H, N, D) attention with an optional bool key-padding mask."""
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
@@ -141,18 +187,14 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None):
             f'shape; got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}')
     if q.shape[-1] > 256:
         raise ValueError(f'flash_attention takes head dims up to 256; got {q.shape[-1]}')
-    if any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError('flash_attention has no backward yet: call it under '
-                           'torch.no_grad() or torch.inference_mode()')
     devices = {t.device for t in (q, k, v)}
     if len(devices) != 1:
         raise ValueError(f'q, k, v on different devices: {sorted(map(str, devices))}')
-    if q.device.type == 'cpu':
-        return flash_attention_reference(
-            q, k, v, None if key_mask is None else key_mask[:, None, None, :], scale)
-    if q.device.type != 'cuda':
+    if q.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'flash_attention runs on cuda or cpu tensors; got {q.device}')
-    return _launch(q, k, v, key_mask, scale)
+    if key_mask is not None:
+        key_mask = key_mask.to(device=q.device)
+    return _FlashAttention.apply(q, k, v, key_mask, scale)
 
 
 flash_attention.launches = 0

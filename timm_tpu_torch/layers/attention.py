@@ -12,12 +12,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.flash_attention import flash_attention
 from .config import softmax_with_policy
-from .drop import Dropout
+from .drop import Dropout, dropout
 from .linear import Linear
 
 __all__ = ['Attention', 'maybe_add_mask', 'scaled_dot_product_attention']
@@ -33,8 +32,10 @@ def maybe_add_mask(scores: torch.Tensor, attn_mask: Optional[torch.Tensor] = Non
     return scores + attn_mask
 
 
-def _sdpa(q, k, v, attn_mask=None, dropout_p: float = 0.0, scale: Optional[float] = None):
-    """Plain scaled dot-product attention on (B, H, N, D) tensors."""
+def _sdpa(q, k, v, attn_mask=None, dropout_p: float = 0.0, scale: Optional[float] = None,
+          generator: Optional[torch.Generator] = None):
+    """Plain scaled dot-product attention on (B, H, N, D) tensors; dropout on
+    the probabilities draws from ``generator``."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     # JAX rounds a Python scalar to q's dtype before the product; so does a
     # 0-dim tensor of that dtype here
@@ -42,17 +43,17 @@ def _sdpa(q, k, v, attn_mask=None, dropout_p: float = 0.0, scale: Optional[float
     attn = q @ k.transpose(-2, -1)
     attn = maybe_add_mask(attn, attn_mask)
     attn = softmax_with_policy(attn, dim=-1).to(q.dtype)
-    if dropout_p > 0.0:
-        attn = F.dropout(attn, p=dropout_p)
+    attn = dropout(attn, dropout_p, training=True, generator=generator)
     return attn @ v
 
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p: float = 0.0,
-                                 scale: Optional[float] = None):
+                                 scale: Optional[float] = None,
+                                 generator: Optional[torch.Generator] = None):
     """Dispatcher over (B, H, N, D) q/k/v: the flash kernel on a CUDA device,
     the plain path on the CPU."""
     if q.device.type != 'cuda':
-        return _sdpa(q, k, v, attn_mask, dropout_p, scale)
+        return _sdpa(q, k, v, attn_mask, dropout_p, scale, generator)
     if dropout_p > 0.0:
         raise NotImplementedError(
             'attention dropout on CUDA: the flash-attention kernel has no dropout yet')
@@ -98,8 +99,8 @@ class Attention(nn.Module):
         B, N, C = x.shape
         qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, self.head_dim).permute(2, 0, 3, 1, 4)
         q, k, v = qkv.unbind(0)  # strided (B, H, N, D) views of the projection
-        dropout_p = self.attn_drop.p if self.training else 0.0
+        dropout_p = self.attn_drop.rate if self.training else 0.0
         x = scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, dropout_p=dropout_p,
-                                         scale=self.scale)
+                                         scale=self.scale, generator=self.attn_drop.generator)
         x = x.transpose(1, 2).reshape(B, N, C)
         return self.proj_drop(self.proj(x))

@@ -3,7 +3,9 @@ timm_tpu/models/_builder.py, reduced to what the ported models need).
 
 Weights are drawn on the CPU from a ``torch.Generator`` seeded with ``seed``
 and then moved to ``device``, so one seed gives the same weights on every
-device. ``device`` defaults to ``cuda``.
+device. The drop-path and dropout masks of training mode draw from a second
+generator on ``device``, seeded with ``seed`` too. ``device`` defaults to
+``cuda``.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from .._device import resolve_device
+from ..layers.drop import set_drop_generator
 from ._pretrained import PretrainedCfg
 from ._registry import get_pretrained_cfg
 
@@ -65,4 +68,5 @@ def build_model_with_cfg(
     model = model_cls(generator=generator, **kwargs)
     model.pretrained_cfg = cfg
     model.default_cfg = cfg.to_dict()
-    return model.to(dev)
+    model = model.to(dev)
+    return set_drop_generator(model, torch.Generator(device=dev).manual_seed(int(seed)))

@@ -2,7 +2,7 @@
 
 Ported: the pre-norm ``Block``, ``VisionTransformer`` with the
 forward_features / forward_head / forward contract, get_classifier /
-reset_classifier, the token pad ``pad_tokens_to`` (which threads a
+reset_classifier, no_weight_decay, the token pad ``pad_tokens_to`` (which threads a
 key-padding mask into every attention), and the entrypoints test_vit,
 test_vit2, vit_tiny_patch16_224 and vit_base_patch16_224.
 
@@ -148,6 +148,9 @@ class VisionTransformer(nn.Module):
             if num_classes > 0 else None
 
     # ---- contract methods -------------------------------------------------
+    def no_weight_decay(self) -> set:
+        return {'pos_embed', 'cls_token', 'reg_token', 'dist_token'}
+
     def get_classifier(self) -> Optional[nn.Module]:
         return self.head
 

@@ -1,0 +1,4 @@
+from .sentinel import (
+    NonFiniteError, NonFiniteSentinel, guard_enabled, new_sentinel_state, tree_all_finite,
+    update_sentinel_state,
+)
