@@ -9,9 +9,12 @@ It builds the port's CUDA kernels from the sources in the checkout (one
 nvcc per source, side by side), holds each kernel against its plain PyTorch
 version on the card, checks ViT-B/16 in bf16 on the card against the same
 weights in fp32 on the CPU, serves ViT-B/16 through the port's
-InferenceEngine, and trains ViT-B/16 through the port's ClassificationTask
-(AdamW through the fused AdamW + EMA kernel), with its gradients checked
-against the CPU in fp32 and a profiler breakdown of the train step. Each
+InferenceEngine, trains ViT-B/16 through the port's ClassificationTask
+(AdamW through the fused AdamW + EMA kernel) on one fixed batch, with its
+gradients checked against the CPU in fp32 and a profiler breakdown of the
+train step, and trains it again from a folder of seeded PNGs through the
+port's input path (threaded loader, CUDA-stream prefetcher, mixup, cutmix
+and erasing sampled on the host, the augment-epilogue kernel). Each
 phase prints one JSON line; then come the kernel summary line, the card's
 name and power limit as nvidia-smi gives them, and the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -40,14 +43,21 @@ PARITY_TOL = 2e-2          # max abs, flash kernel vs plain (the TPU registry's 
 # fused_adamw kernel vs plain (the TPU registry's parity_tol): max abs on p and
 # ema; m and v, far below 1, relative to their largest magnitude
 ADAMW_TOL = 1e-6
+# augment_epilogue kernel vs plain (the TPU registry's parity_tol): max abs
+# for fp32 out; for bf16 out one bf16 ulp of the plain value, and no less
+# than AUGMENT_TOL where the blend cancels to near zero (there one fp32 ulp
+# of difference before the cast is many bf16 ulps of the result)
+AUGMENT_TOL = 1e-6
 MODEL_REL_L2_TOL = 2e-2    # bf16 on the card vs fp32 on the CPU
 SERVE_REL_L2_TOL = 2e-2    # a served row vs the direct bf16 forward of its image
 GRAD_REL_L2_TOL = 5e-2     # one step's bf16 gradients on the card vs fp32 on the CPU
 SERVE_BUCKETS = (1, 4, 16, 64)
 SERVE_BURSTS = (1, 3, 10, 64, 64, 40, 2, 16)  # 200 requests; every bucket dispatches
-KERNELS = ('flash_attention', 'fused_adamw')
+KERNELS = ('flash_attention', 'fused_adamw', 'augment_epilogue')
 ADAMW_HP = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.05)
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARMUP_STEPS, TRAIN_LR = 64, 20, 2, 3e-4
+# phase input_train: a folder of seeded PNGs, 3 classes, 256-320 px a side
+INPUT_IMAGES_PER_CLASS, INPUT_WORKERS = 192, 6
 
 
 def emit(obj) -> None:
@@ -104,7 +114,8 @@ def phase_device():
 
 
 def _ptxas_summary(log: str):
-    """Registers and spills per kernel entry from ``nvcc -Xptxas -v``."""
+    """Registers, stack frame and spills per kernel entry from
+    ``nvcc -Xptxas -v``."""
     out, entry = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -114,6 +125,9 @@ def _ptxas_summary(log: str):
             continue
         if entry is None:
             continue
+        m = re.search(r'(\d+) bytes stack frame', line)
+        if m:
+            entry['stack_frame'] = int(m.group(1))
         m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
         if m:
             entry['spill_stores'], entry['spill_loads'] = int(m.group(1)), int(m.group(2))
@@ -142,6 +156,7 @@ def phase_build():
                'max_registers': max((e.get('registers', 0) for e in entries), default=None),
                'spill_bytes': sum(e.get('spill_stores', 0) + e.get('spill_loads', 0)
                                   for e in entries),
+               'max_stack_frame': max((e.get('stack_frame', 0) for e in entries), default=None),
                'ptxas': entries}
         if name == 'flash_attention':
             row['smem_bytes_bf16_d64'] = kernel_smem_bytes(torch.bfloat16, 64)
@@ -307,6 +322,95 @@ def phase_fused_adamw():
     emit({'phase': 'kernels', 'kernel': 'fused_adamw',
           'replaces': 'timm_tpu/kernels/fused_adamw.py:54 (_kernel)', 'cases': rows})
     del model, opt, p0, grads, m0, v0
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _augment_case(name, B, size, K, mix, out_dtype, seed, width=None):
+    """Inputs of the augment epilogue as the JAX registry makes them
+    (timm_tpu/kernels/augment_epilogue.py ``_make_inputs``): a uint8 batch,
+    K erase boxes per image, and with ``mix`` per-image lam, cutmix flags and
+    boxes; without, the identity values the device stage passes."""
+    import torch
+    rng = np.random.default_rng(seed)
+    h, w = size, width or size
+    image = rng.integers(0, 256, (B, h, w, 3), dtype=np.uint8)
+    boxes = np.zeros((B, K, 4), np.int32)
+    for i in range(B):
+        for k in range(K):
+            eh, ew = rng.integers(4, h // 2), rng.integers(4, w // 2)
+            boxes[i, k] = (rng.integers(0, h - eh), rng.integers(0, w - ew), eh, ew)
+    if mix:
+        yl, xl = rng.integers(0, h // 2, B), rng.integers(0, w // 2, B)
+        lam = rng.uniform(0.2, 1.0, B).astype(np.float32)
+        cut = rng.integers(0, 2, B).astype(bool)
+        bbox = np.stack([yl, yl + h // 4, xl, xl + w // 4], 1).astype(np.int32)
+    else:
+        lam, cut, bbox = np.ones(B, np.float32), np.zeros(B, np.int32), np.zeros((B, 4), np.int32)
+    args = [torch.from_numpy(a).cuda() for a in (image, lam, cut, bbox, boxes)]
+    out_bytes = torch.empty((), dtype=out_dtype).element_size()
+    n = image.size
+    # the least work: read the uint8 batch once, write the output once;
+    # about 20 fp32 operations per element (two divisions, the blend, the
+    # box tests, the normalise)
+    nbytes = n * (1 + out_bytes) + sum(a.numel() * a.element_size() for a in args[1:])
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, 20 * n / PEAK_FP32_FLOPS * 1e3
+    return dict(name=name, args=args, shape=[B, h, w, 3], boxes=K, mix=mix, out_dtype=out_dtype,
+                bound_ms=max(t_bytes, t_ops), bound_by='bytes' if t_bytes >= t_ops else 'operations')
+
+
+def _within_one_ulp(out, ref, mantissa_bits: int, floor: float) -> bool:
+    """|out - ref| <= max(one ulp of ref, floor) in a format with
+    ``mantissa_bits`` explicit mantissa bits (7 for bf16)."""
+    import torch
+    r = ref.float()
+    ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r.abs())[1] - (mantissa_bits + 1))
+    return bool(((out.float() - r).abs() <= ulp.clamp_min(floor)).all())
+
+
+def phase_augment_epilogue():
+    """The augment-epilogue kernel against its plain version on the card:
+    the registry's two cases (mix_erase with K 1, no_mix) at batch 64 and
+    128 at 224 px with fp32 out, and two edge cases (odd batch, W*C not a
+    multiple of 4, K 3, bf16 out; H*W*C a multiple of 4 or odd); then
+    kernel, plain and bound times."""
+    import torch
+    from timm_tpu_torch.kernels import augment_epilogue, augment_epilogue_reference
+    kw = dict(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225), re_mean=(0.485, 0.456, 0.406))
+    cases = [
+        _augment_case('mix_erase_b64', 64, 224, 1, True, torch.float32, 0),
+        _augment_case('no_mix_b64', 64, 224, 1, False, torch.float32, 1),
+        _augment_case('mix_erase_b128', 128, 224, 1, True, torch.float32, 2),
+        _augment_case('no_mix_b128', 128, 224, 1, False, torch.float32, 3),
+        # W*C = 663: 4-byte groups cross rows (H*W*C a multiple of 4), and
+        # one byte a thread (H*W*C odd)
+        _augment_case('edge_odd_b_bf16', 63, 224, 3, True, torch.bfloat16, 4, width=221),
+        _augment_case('edge_odd_b_bf16_odd_hwc', 63, 223, 3, True, torch.bfloat16, 5, width=221),
+    ]
+    rows = []
+    for c in cases:
+        args, dt = c['args'], c['out_dtype']
+        launches_before = augment_epilogue.launches
+        out = augment_epilogue(*args, out_dtype=dt, **kw)
+        ref = augment_epilogue_reference(*args, out_dtype=dt, **kw)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        ok = err <= AUGMENT_TOL if dt == torch.float32 else _within_one_ulp(out, ref, 7, AUGMENT_TOL)
+        kernel_ms = time_ms(lambda: augment_epilogue(*args, out_dtype=dt, **kw))
+        plain_ms = time_ms(lambda: augment_epilogue_reference(*args, out_dtype=dt, **kw), iters=10)
+        rows.append({'case': c['name'], 'shape': c['shape'], 'boxes': c['boxes'], 'mix': c['mix'],
+                     'out_dtype': str(dt).replace('torch.', ''), 'max_abs_err': err,
+                     'tol': AUGMENT_TOL if dt == torch.float32 else 'one bf16 ulp, at least 1e-6',
+                     'within_tol': ok, 'finite': bool(torch.isfinite(out).all()),
+                     'kernel_ms': kernel_ms, 'plain_ms': plain_ms, 'library_ms': None,
+                     'bound_ms': c['bound_ms'], 'bound_by': c['bound_by'],
+                     'launches': augment_epilogue.launches - launches_before})
+        check(ok, f'{c["name"]}: kernel vs plain max abs err {err} outside the tolerance')
+        check(rows[-1]['finite'], f'{c["name"]}: non-finite kernel output')
+        del out, ref
+    emit({'phase': 'kernels', 'kernel': 'augment_epilogue',
+          'replaces': 'timm_tpu/kernels/augment_epilogue.py:55 (_epilogue_kernel)', 'cases': rows})
+    del cases
     torch.cuda.empty_cache()
     return rows
 
@@ -509,7 +613,233 @@ def phase_train():
     check(flash_steps == [depth] * TRAIN_STEPS, f'train: flash launches per step {flash_steps}')
     check(int(last['nonfinite_total']) == 0 and int(task.optimizer.count) == TRAIN_STEPS,
           'train: the guard skipped a step')
-    return launches, task, batch
+    return launches, task, batch, step_ms
+
+
+def _write_image_folder(root: str, per_class: int, seed: int = 0):
+    """A folder of class folders of seeded RGB PNGs, 256-320 px a side:
+    smooth random colour fields with pixel noise, written in parallel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for c in range(3):
+        os.makedirs(os.path.join(root, f'class{c}'))
+        for i in range(per_class):
+            h, w = (int(v) for v in rng.integers(256, 321, 2))
+            coarse = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), dtype=np.uint8)
+            noise = rng.integers(-12, 13, (h, w, 3))
+            jobs.append((os.path.join(root, f'class{c}', f'{i:04d}.png'), coarse, noise, (w, h)))
+
+    def write(job):
+        path, coarse, noise, size = job
+        smooth = np.asarray(Image.fromarray(coarse).resize(size, Image.BILINEAR), np.int64)
+        Image.fromarray(np.clip(smooth + noise, 0, 255).astype(np.uint8)).save(path, compress_level=1)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+    return len(jobs)
+
+
+def _input_loader(root, data_config, device, seed=0, num_workers=INPUT_WORKERS, no_aug=False):
+    """The recipe's loader: create_dataset over the folder, create_loader
+    with device_augment (erasing 0.25 'const', Mixup 0.8 / CutMix 1.0 with
+    label smoothing 0.1) and device_prefetch 2."""
+    import torch
+    from timm_tpu_torch.data import Mixup, create_loader
+    from timm_tpu_torch.data.dataset_factory import create_dataset
+    mixup = Mixup(mixup_alpha=0.8, cutmix_alpha=1.0, label_smoothing=0.1, num_classes=1000,
+                  seed=seed)
+    return create_loader(
+        create_dataset('', root, split='train'), data_config['input_size'], TRAIN_BATCH,
+        is_training=True, no_aug=no_aug, re_prob=0.25, re_mode='const',
+        interpolation=data_config['interpolation'], mean=data_config['mean'],
+        std=data_config['std'], num_workers=num_workers, seed=seed, device_augment=True,
+        device_prefetch=2, mixup=mixup, device=torch.device(device))
+
+
+def _batches(loader):
+    """Batches of the loader over successive epochs, without end."""
+    epoch = 0
+    while True:
+        loader.set_epoch(epoch)
+        yield from loader
+        epoch += 1
+
+
+def _host_ms_per_image(root, data_config, n: int = 64):
+    """Host time per image of each stage of the train transform, one thread:
+    decode (the dataset with no transform), then each transform in turn."""
+    import random
+
+    from timm_tpu_torch.data.dataset_factory import create_dataset
+    from timm_tpu_torch.data.transforms_factory import create_transform
+    ds = create_dataset('', root, split='train')
+    tf = create_transform(data_config['input_size'], is_training=True,
+                          interpolation=data_config['interpolation'], mean=data_config['mean'],
+                          std=data_config['std'], output_dtype=np.uint8)
+    random.seed(0)
+    ms = {'decode': 0.0}
+    for i in range(n):
+        t = time.perf_counter()
+        img, _ = ds[i * (len(ds) // n)]
+        ms['decode'] += time.perf_counter() - t
+        for step in tf.transforms:
+            t = time.perf_counter()
+            img = step(img)
+            name = type(step).__name__
+            ms[name] = ms.get(name, 0.0) + time.perf_counter() - t
+    return {k: v * 1e3 / n for k, v in ms.items()}
+
+
+def phase_input_train(train_step_ms: float):
+    """The input path of training: ClassificationTask trains ViT-B/16 (bf16
+    compute, fp32 params, SoftTargetCrossEntropy, the task's normalize off
+    since the stage normalises) for 20 steps at batch 64 from a folder of
+    seeded PNGs through create_dataset -> create_loader (threaded decode and
+    transforms, DevicePrefetcher(size=2), DeviceAugmentStage with Mixup /
+    CutMix and RandomErasing sampled on the host, the augment-epilogue
+    kernel). The launch counts are read around this run only. Then: a
+    profiler breakdown over 3 steps, the input path's own rate over 2 epochs
+    without training, and a card stage and a CPU stage over the same
+    deterministic loader, which must agree."""
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import timm_tpu_torch
+    from timm_tpu_torch.data import resolve_model_data_config
+    from timm_tpu_torch.kernels import augment_epilogue, flash_attention, fused_adamw
+    from timm_tpu_torch.loss import SoftTargetCrossEntropy
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_images_') as root:
+        t0 = time.perf_counter()
+        n_images = _write_image_folder(root, INPUT_IMAGES_PER_CLASS)
+        write_s = time.perf_counter() - t0
+        model = timm_tpu_torch.create_model('vit_base_patch16_224', dtype=torch.bfloat16, seed=0,
+                                            drop_path_rate=0.1, device='cuda')
+        data_config = resolve_model_data_config(model)
+        opt = timm_tpu_torch.create_optimizer_v2(model, opt='adamw', lr=TRAIN_LR, weight_decay=0.05)
+        task = timm_tpu_torch.ClassificationTask(
+            model, optimizer=opt, train_loss_fn=SoftTargetCrossEntropy(), seed=0, clip_grad=1.0,
+            mean=None)
+        task.setup_ema(decay=0.9998)
+        sched, _ = timm_tpu_torch.create_scheduler_v2(
+            TRAIN_LR, 'cosine', num_epochs=TRAIN_STEPS, warmup_epochs=3, warmup_lr=1e-6)
+        loader = _input_loader(root, data_config, 'cuda')
+        depth = len(model.blocks)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        batches = _batches(loader)
+        flash_attention.launches = fused_adamw.launches = augment_epilogue.launches = 0
+        metrics, wait_ms, step_wall_ms, per_step = [], [], [], []
+        t0 = time.perf_counter()
+        for step in range(TRAIN_STEPS):
+            if step == TRAIN_WARMUP_STEPS:
+                start.record()
+            counts = (flash_attention.launches, fused_adamw.launches, augment_epilogue.launches)
+            tw = time.perf_counter()
+            x, y = next(batches)
+            wait_ms.append((time.perf_counter() - tw) * 1e3)
+            metrics.append(task.train_step({'input': x, 'target': y},
+                                           lr=sched.step(step)[0], step=step + 1))
+            # the step ends in the guard's counter read-back, as in JAX
+            step_wall_ms.append((time.perf_counter() - tw) * 1e3)
+            per_step.append([now - was for now, was in zip(
+                (flash_attention.launches, fused_adamw.launches, augment_epilogue.launches), counts)])
+            del x, y
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {'flash_attention': flash_attention.launches,
+                    'fused_adamw': fused_adamw.launches,
+                    'augment_epilogue': augment_epilogue.launches}
+        step_ms = start.elapsed_time(end) / (TRAIN_STEPS - TRAIN_WARMUP_STEPS)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [float(m['loss']) for m in metrics]
+
+        # where the time goes over 3 more steps, input wait included
+        reps = 3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tp = time.perf_counter()
+            for i in range(reps):
+                x, y = next(batches)
+                task.train_step({'input': x, 'target': y}, lr=1e-5, step=TRAIN_STEPS + 1 + i)
+                del x, y
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - tp) * 1e3 / reps
+        batches.close()
+        # the input path alone, no training: 2 epochs of a fresh loader
+        loader_only = _batches(_input_loader(root, data_config, 'cuda'))
+        loader_wait_ms = []
+        tl = time.perf_counter()
+        for _ in range(2 * len(loader)):
+            tb = time.perf_counter()
+            next(loader_only)
+            loader_wait_ms.append((time.perf_counter() - tb) * 1e3)
+        torch.cuda.synchronize()
+        loader_img_per_s = 2 * len(loader) * TRAIN_BATCH / (time.perf_counter() - tl)
+        loader_only.close()
+        kernels = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not getattr(e, 'is_user_annotation', False):
+                kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3 / reps
+        busy = sum(kernels.values())
+        epilogue = sum(v for k, v in kernels.items() if 'augment_epilogue_kernel' in k)
+
+        host_ms = _host_ms_per_image(root, data_config)
+
+        # a card stage and a CPU stage over the same deterministic loader
+        # (one worker, resize and centre crop, same seeds): 2 batches each
+        stages = {}
+        for device in ('cuda', 'cpu'):
+            it = iter(_input_loader(root, data_config, device, num_workers=1, no_aug=True))
+            stages[device] = [tuple(t.float().cpu() for t in next(it)) for _ in range(2)]
+            it.close()
+        stage_err = max(float((a - b).abs().max())
+                        for (xa, ya), (xb, yb) in zip(stages['cuda'], stages['cpu'])
+                        for a, b in ((xa, xb), (ya, yb)))
+    row = {'phase': 'input_train', 'model': 'vit_base_patch16_224', 'dtype': 'bfloat16',
+           'batch': TRAIN_BATCH, 'steps': TRAIN_STEPS, 'images': n_images,
+           'batches_per_epoch': len(loader), 'workers': INPUT_WORKERS, 'pillow': True,
+           'data_config': {k: data_config[k] for k in ('input_size', 'interpolation', 'mean', 'std')},
+           'write_images_s': write_s, 'losses': losses,
+           'grad_norms': [float(m['grad_norm']) for m in metrics],
+           'step_ms': step_ms, 'img_per_s': TRAIN_BATCH / step_ms * 1e3,
+           'train_fixed_batch_step_ms': train_step_ms, 'wall_s': wall,
+           'input_wait_ms_per_step': wait_ms,
+           'input_wait_ms_mean_steps_3_20': float(np.mean(wait_ms[TRAIN_WARMUP_STEPS:])),
+           'step_wall_ms_per_step': step_wall_ms,
+           # steps that do not open an epoch (no pipeline restart)
+           'step_wall_ms_median_within_epoch': float(np.median(
+               [ms for i, ms in enumerate(step_wall_ms) if i % len(loader)])),
+           'loader_only_img_per_s': loader_img_per_s,
+           'loader_only_wait_ms_per_batch': loader_wait_ms,
+           'host_ms_per_image_one_thread': host_ms,
+           'peak_memory_gb': peak_gb,
+           'launches_per_step': per_step, 'launches': launches,
+           'profiled_steps': reps, 'wall_ms_per_step_profiled': prof_wall_ms,
+           'device_ms_per_step': busy if kernels else 'not measured',
+           'idle_share': 1.0 - busy / prof_wall_ms if kernels else 'not measured',
+           'augment_epilogue_ms_per_step': epilogue if kernels else 'not measured',
+           'augment_epilogue_share': epilogue / busy if kernels else 'not measured',
+           'card_vs_cpu_stage_max_abs_err': stage_err, 'card_vs_cpu_stage_tol': AUGMENT_TOL,
+           'nonfinite_total': int(metrics[-1]['nonfinite_total'])}
+    emit(row)
+    check(all(np.isfinite(losses)), f'input_train: non-finite loss in {losses}')
+    check([p[2] for p in per_step] == [1] * TRAIN_STEPS,
+          f'input_train: augment_epilogue launches per step {[p[2] for p in per_step]}')
+    check([p[1] for p in per_step] == [1] * TRAIN_STEPS,
+          f'input_train: fused_adamw launches per step {[p[1] for p in per_step]}')
+    check([p[0] for p in per_step] == [depth] * TRAIN_STEPS,
+          f'input_train: flash launches per step {[p[0] for p in per_step]}')
+    check(stage_err <= AUGMENT_TOL, f'input_train: card vs CPU stage max abs err {stage_err}')
+    del task, model, opt, loader
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_train_vs_cpu():
@@ -544,9 +874,12 @@ def phase_train_breakdown(task, batch):
     """Where the time of a train step goes: device time by kernel from
     torch.profiler over 3 steps, the device's idle share of the host wall
     time, and the shares of the flash forward, the attention backward (the
-    named range around the plain recompute) and fused_adamw; and the
-    attention backward of one layer timed alone with CUDA events."""
+    named range around the plain recompute) and fused_adamw; the attention
+    backward of one layer timed alone with CUDA events; and the library's
+    attention backward at the same shapes (SDPA forward + backward less its
+    forward), timed only: the port never calls it."""
     import torch
+    import torch.nn.functional as F
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from timm_tpu_torch.kernels import flash_attention_backward
@@ -587,6 +920,13 @@ def phase_train_breakdown(task, batch):
     nbytes = 7 * q.numel() * 2
     flops = 5 * 2 * TRAIN_BATCH * 12 * 197 * 197 * 64
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def library_fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(ql, kl, vl), (ql, kl, vl), do)
+    library_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl), iters=20, warmup=3)
+    library_fwd_bwd_ms = time_ms(library_fwd_bwd, iters=20, warmup=3)
+    library_bwd_ms = library_fwd_bwd_ms - library_fwd_ms
     emit({'phase': 'train_breakdown', 'model': 'vit_base_patch16_224', 'batch': TRAIN_BATCH,
           'wall_ms_per_step': wall_ms,
           'device_ms_per_step': busy if kernels else 'not measured',
@@ -598,8 +938,10 @@ def phase_train_breakdown(task, batch):
           'attention_bwd_ms_per_layer_alone': bwd_ms,
           'attention_bwd_bound_ms_per_layer': max(t_bytes, t_ops),
           'attention_bwd_bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+          'attention_bwd_library_ms_per_layer': library_bwd_ms,
+          'sdpa_fwd_ms': library_fwd_ms, 'sdpa_fwd_bwd_ms': library_fwd_bwd_ms,
           'top_kernels': [{'kernel': k[:120], 'ms': v} for k, v in top]})
-    return bwd_ms
+    return bwd_ms, library_bwd_ms
 
 
 def main() -> int:
@@ -621,40 +963,61 @@ def main() -> int:
         phase_build()
         rows = phase_kernels()
         adamw_rows = phase_fused_adamw()
+        augment_rows = phase_augment_epilogue()
         phase_model()
         serve_launches, served_model = phase_serve()
         phase_breakdown(served_model)
         del served_model
-        train_launches, task, batch = phase_train()
+        train_launches, task, batch, train_step_ms = phase_train()
         phase_train_vs_cpu()
-        attn_bwd_ms = phase_train_breakdown(task, batch)
+        attn_bwd_ms, attn_bwd_library_ms = phase_train_breakdown(task, batch)
+        del task, batch
+        input_launches = phase_input_train(train_step_ms)
     except Exception:
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
         return 1
-    main_row, adamw_row = rows[0], adamw_rows[0]  # bucket-64 attention; fp32-m AdamW
+    # bucket-64 attention; fp32-m AdamW; the epilogue at batch 64 with mixup
+    main_row, adamw_row, augment_row = rows[0], adamw_rows[0], augment_rows[0]
     emit({'kernels': [{
         'name': 'flash_attention', 'route': 'cuda',
         'source': 'timm_tpu_torch/kernels/csrc/flash_attention.cu',
         'replaces': 'timm_tpu/kernels/flash_attention.py:79',
-        'launches': serve_launches + train_launches['flash_attention'],
-        'launches_by_path': {'serve': serve_launches, 'train': train_launches['flash_attention']},
+        'launches': (serve_launches + train_launches['flash_attention']
+                     + input_launches['flash_attention']),
+        'launches_by_path': {'serve': serve_launches, 'train': train_launches['flash_attention'],
+                             'input_train': input_launches['flash_attention']},
         'max_abs_err': max(r['max_abs_err'] for r in rows),
         'ms': main_row['kernel_ms'], 'plain_ms': main_row['plain_ms'],
         'bound_ms': main_row['bound_ms'], 'bound_by': main_row['bound_by'],
         'library_ms': main_row['library_ms'],
         'backward_plain_ms_per_layer': attn_bwd_ms,
+        'backward_library_ms_per_layer': attn_bwd_library_ms,
     }, {
         'name': 'fused_adamw', 'route': 'cuda',
         'source': 'timm_tpu_torch/kernels/csrc/fused_adamw.cu',
         'replaces': 'timm_tpu/kernels/fused_adamw.py:54',
-        'launches': train_launches['fused_adamw'],
-        'launches_by_path': {'train': train_launches['fused_adamw']},
+        'launches': train_launches['fused_adamw'] + input_launches['fused_adamw'],
+        'launches_by_path': {'train': train_launches['fused_adamw'],
+                             'input_train': input_launches['fused_adamw']},
         'max_abs_err': max(max(r['max_abs_err'][k] for k in ('p', 'v', 'ema'))
                            for r in adamw_rows),
         'ms': adamw_row['kernel_ms'], 'plain_ms': adamw_row['plain_ms'],
         'bound_ms': adamw_row['bound_ms'], 'bound_by': adamw_row['bound_by'],
         'library_ms': adamw_row['library_ms'],
+    }, {
+        'name': 'augment_epilogue', 'route': 'cuda',
+        'source': 'timm_tpu_torch/kernels/csrc/augment_epilogue.cu',
+        'replaces': 'timm_tpu/kernels/augment_epilogue.py:55',
+        'launches': input_launches['augment_epilogue'],
+        'launches_by_path': {'input_train': input_launches['augment_epilogue']},
+        # fp32 cases; the bf16 cases are held to one bf16 ulp ('within_tol')
+        'max_abs_err': max(r['max_abs_err'] for r in augment_rows if r['out_dtype'] == 'float32'),
+        'bf16_within_one_ulp': all(r['within_tol'] for r in augment_rows
+                                   if r['out_dtype'] == 'bfloat16'),
+        'ms': augment_row['kernel_ms'], 'plain_ms': augment_row['plain_ms'],
+        'bound_ms': augment_row['bound_ms'], 'bound_by': augment_row['bound_by'],
+        'library_ms': None,
     }], 'seconds': time.perf_counter() - t0})
     print(device['nvidia_smi'], flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': device['name'],

@@ -197,7 +197,7 @@ def test_port_imports_no_jax():
         files += [os.path.join(dirpath, n) for n in names if n.endswith('.py')]
     assert len(files) > 20
     scanned = {os.path.relpath(os.path.dirname(f), REPO_ROOT) for f in files}
-    for sub in ('kernels', 'layers', 'loss', 'models', 'optim', 'resilience', 'scheduler',
+    for sub in ('data', 'kernels', 'layers', 'loss', 'models', 'optim', 'resilience', 'scheduler',
                 'serve', 'task', 'utils'):
         assert os.path.join('timm_tpu_torch', sub) in scanned, sub
     offenders = {}

@@ -1,0 +1,111 @@
+"""Dataset readers (copy of the folder reader of timm_tpu/data/readers.py).
+The streaming readers wait (ROADMAP A.5)."""
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional, Tuple
+
+__all__ = ['ReaderImageFolder', 'create_reader', 'load_class_map']
+
+IMG_EXTENSIONS = ('.png', '.jpg', '.jpeg', '.gif', '.bmp', '.webp', '.ppm', '.tif', '.tiff')
+
+
+def natural_key(string_: str):
+    import re
+    return [int(s) if s.isdigit() else s for s in re.split(r'(\d+)', string_.lower())]
+
+
+def load_class_map(map_or_filename, root: str = ''):
+    if isinstance(map_or_filename, dict):
+        return map_or_filename
+    class_map_path = map_or_filename
+    if not os.path.exists(class_map_path):
+        class_map_path = os.path.join(root, class_map_path)
+        assert os.path.exists(class_map_path), f'Cannot locate specified class map file ({map_or_filename})'
+    class_map_ext = os.path.splitext(map_or_filename)[-1].lower()
+    if class_map_ext == '.txt':
+        with open(class_map_path) as f:
+            class_to_idx = {v.strip(): k for k, v in enumerate(f)}
+    elif class_map_ext == '.json':
+        import json
+        with open(class_map_path) as f:
+            class_to_idx = json.load(f)
+    else:
+        raise AssertionError(f'Unsupported class map file extension ({class_map_ext})')
+    return class_to_idx
+
+
+def find_images_and_targets(
+        folder: str,
+        types=IMG_EXTENSIONS,
+        class_to_idx: Optional[Dict] = None,
+        sort: bool = True,
+):
+    labels = []
+    filenames = []
+    for root, _, files in os.walk(folder, topdown=False, followlinks=True):
+        rel_path = os.path.relpath(root, folder) if root != folder else ''
+        label = rel_path.replace(os.path.sep, '_')
+        for f in files:
+            _, ext = os.path.splitext(f)
+            if ext.lower() in types:
+                filenames.append(os.path.join(root, f))
+                labels.append(label)
+    if class_to_idx is None:
+        unique_labels = set(labels)
+        sorted_labels = sorted(unique_labels, key=natural_key)
+        class_to_idx = {c: idx for idx, c in enumerate(sorted_labels)}
+    images_and_targets = [
+        (f, class_to_idx[l]) for f, l in zip(filenames, labels) if l in class_to_idx]
+    if sort:
+        images_and_targets = sorted(images_and_targets, key=lambda k: natural_key(k[0]))
+    return images_and_targets, class_to_idx
+
+
+class ReaderImageFolder:
+    """folder-of-class-folders reader (reference reader_image_folder.py:59)."""
+
+    def __init__(self, root: str, class_map='', input_key=None, target_key=None):
+        self.root = root
+        class_to_idx = None
+        if class_map:
+            class_to_idx = load_class_map(class_map, root)
+        self.samples, self.class_to_idx = find_images_and_targets(root, class_to_idx=class_to_idx)
+        if len(self.samples) == 0:
+            raise RuntimeError(
+                f'Found 0 images in subfolders of {root}. Supported extensions: {", ".join(IMG_EXTENSIONS)}')
+
+    def __getitem__(self, index: int):
+        path, target = self.samples[index]
+        return open(path, 'rb'), target
+
+    def __len__(self):
+        return len(self.samples)
+
+    def _filename(self, index, basename=False, absolute=False):
+        filename = self.samples[index][0]
+        if basename:
+            filename = os.path.basename(filename)
+        elif not absolute:
+            filename = os.path.relpath(filename, self.root)
+        return filename
+
+    def filename(self, index, basename=False, absolute=False):
+        return self._filename(index, basename=basename, absolute=absolute)
+
+    def filenames(self, basename=False, absolute=False):
+        return [self._filename(i, basename=basename, absolute=absolute) for i in range(len(self))]
+
+
+def create_reader(name: str, root: str, split: str = 'train', **kwargs):
+    """Reader factory (reference reader_factory.py). Expects `root` to be the
+    final split directory — split resolution happens once, in
+    dataset_factory._search_split. Only the folder reader is ported; other
+    schemes raise (ROADMAP A.5)."""
+    name = (name or '').lower()
+    prefix = ''
+    if ':' in name:
+        prefix, _, name = name.partition(':')
+    if prefix in ('', 'folder'):
+        return ReaderImageFolder(root, **kwargs)
+    raise NotImplementedError(f'reader scheme {prefix!r} is not ported yet (ROADMAP A.5)')
