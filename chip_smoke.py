@@ -14,7 +14,13 @@ InferenceEngine, trains ViT-B/16 through the port's ClassificationTask
 gradients checked against the CPU in fp32 and a profiler breakdown of the
 train step, and trains it again from a folder of seeded PNGs through the
 port's input path (threaded loader, CUDA-stream prefetcher, mixup, cutmix
-and erasing sampled on the host, the augment-epilogue kernel). Each
+and erasing sampled on the host, the augment-epilogue kernel). The flash
+and augment kernels' times are device times from CUDA-graph replays
+(``kernel_ms``) beside the time of eager calls, the wrapper's host time
+included (``call_ms``); each kernel's time is set against its bound
+(``bound_share``) and against the time of the design it replaced
+(``previous_ms``), which is built from ``kernels/csrc/previous/`` and timed
+on the same inputs in the same way. Each
 phase prints one JSON line; then come the kernel summary line, the card's
 name and power limit as nvidia-smi gives them, and the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -23,6 +29,7 @@ non-zero at once. It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -58,6 +65,15 @@ ADAMW_HP = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.05)
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARMUP_STEPS, TRAIN_LR = 64, 20, 2, 3e-4
 # phase input_train: a folder of seeded PNGs, 3 classes, 256-320 px a side
 INPUT_IMAGES_PER_CLASS, INPUT_WORKERS = 192, 6
+# kernels whose previous design is kept in kernels/csrc/previous/, built
+# beside them and timed on the same inputs (previous_ms)
+PREVIOUS_KERNELS = ('flash_attention', 'augment_epilogue')
+# flash cases held to an fp64 oracle (scores spread over several units):
+# the kernel's own roundings (p and the output rounded to a type with
+# 2^-8 relative precision, bf16) allow 2^-8 (softmax-weighted |v| + |o|)
+# per element, and SHARP_SLACK covers ex2.approx and fp32 sums
+SHARP_PRECISION_BITS = {'bfloat16': 8, 'float16': 11}
+SHARP_SLACK = 1e-4
 
 
 def emit(obj) -> None:
@@ -95,6 +111,35 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, per_graph: int = 20, replays: int = 10) -> float:
+    """Device time of one call: CUDA events around replays of a CUDA graph
+    that holds ``per_graph`` calls, so the wrapper's host time (tens of
+    microseconds of Python) is left out of a kernel that runs for less."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (per_graph * replays)
+    del graph
+    return ms
 
 
 def rel_l2(a: np.ndarray, b: np.ndarray) -> float:
@@ -137,20 +182,42 @@ def _ptxas_summary(log: str):
     return out
 
 
+def _declare_previous(name: str, lib):
+    """The C signatures of a previous design's library: those of the
+    current kernel's entry."""
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if name == 'flash_attention':
+        fn = lib.timm_flash_attention_fwd
+        fn.argtypes = [i, i] + [p] * 5 + [i] * 3 + [i64] * 13 + [ctypes.c_float, p]
+    else:
+        fn = lib.timm_augment_epilogue
+        fn.argtypes = [p, p, i, p, p, i, p, p] + [i] * 5 + [ctypes.POINTER(ctypes.c_float)] * 3 + [i, p]
+    fn.restype = i
+    return lib
+
+
 def phase_build():
-    """One nvcc per kernel source, all started together."""
+    """One nvcc per kernel source, the previous designs' included, all
+    started together. Returns the previous designs' libraries by name."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
     from timm_tpu_torch.kernels import kernel_smem_bytes
-    from timm_tpu_torch.kernels._build import load_library
+    from timm_tpu_torch.kernels._build import SOURCE_DIR, load_library
+    jobs = ([(name, SOURCE_DIR) for name in KERNELS]
+            + [(name, SOURCE_DIR / 'previous') for name in PREVIOUS_KERNELS])
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = dict(zip(KERNELS, pool.map(load_library, KERNELS)))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(lambda job: load_library(*job), jobs))
     wall = time.perf_counter() - t0
-    for name, lib in built.items():
+    previous = {}
+    for (name, source_dir), lib in zip(jobs, built):
         entries = _ptxas_summary(lib.log)
-        row = {'phase': 'build', 'kernel': name, 'built': lib.built,
+        is_previous = source_dir != SOURCE_DIR
+        if is_previous:
+            previous[name] = _declare_previous(name, lib.lib)
+        row = {'phase': 'build', 'kernel': name + (' (previous)' if is_previous else ''),
+               'source': os.path.relpath(source_dir / f'{name}.cu', HERE), 'built': lib.built,
                'nvcc_seconds': lib.build_seconds, 'build_wall_seconds_all': wall,
                'library': os.path.relpath(lib.path, HERE), 'entries': len(entries),
                'max_registers': max((e.get('registers', 0) for e in entries), default=None),
@@ -158,20 +225,36 @@ def phase_build():
                                   for e in entries),
                'max_stack_frame': max((e.get('stack_frame', 0) for e in entries), default=None),
                'ptxas': entries}
-        if name == 'flash_attention':
+        if name == 'flash_attention' and not is_previous:
             row['smem_bytes_bf16_d64'] = kernel_smem_bytes(torch.bfloat16, 64)
             row['smem_bytes_bf16_d256'] = kernel_smem_bytes(torch.bfloat16, 256)
+            row['smem_bytes_fp32_d64'] = kernel_smem_bytes(torch.float32, 64)
+            # registers and spills of each 16-bit instantiation, by dtype and head dim
+            per_dim = {}
+            for e in entries:
+                m = re.search(r'flash_fwd_kernelI(13__nv_bfloat16|6__half)Li(\d+)E', e['entry'])
+                if m:
+                    key = f"{'bf16' if 'bfloat' in m.group(1) else 'fp16'}_d{m.group(2)}"
+                    per_dim[key] = {'registers': e.get('registers'),
+                                    'spill_bytes': e.get('spill_stores', 0) + e.get('spill_loads', 0)}
+            row['flash_16bit'] = per_dim
+            row['flash_16bit_spill_free_d32_d128'] = all(
+                v['spill_bytes'] == 0 for k, v in per_dim.items() if not k.endswith('d256'))
         emit(row)
+    return previous
 
 
-def _attention_case(name, B, H, N, D, valid, seed):
-    """bf16 q, k, v from a seeded generator; ``valid`` = per-row count of
-    valid keys (None: unmasked)."""
+def _attention_case(name, B, H, N, D, valid, seed, dtype='bfloat16', qk_scale=0.5, v_scale=0.5):
+    """q, k, v of ``dtype`` (bf16 or fp16) from a seeded generator, standard
+    normal times ``qk_scale`` (q, k) and ``v_scale`` (v); ``valid`` = per-row
+    count of valid keys (None: unmasked). At the default scales the scores
+    lie within about one unit and the case is held to the plain version;
+    with larger ones, to the fp64 oracle."""
     import torch
     g = torch.Generator(device='cuda').manual_seed(seed)
     shape = (B, H, N, D)
-    q, k, v = (torch.randn(shape, generator=g, device='cuda').mul_(0.5).to(torch.bfloat16)
-               for _ in range(3))
+    q, k, v = (torch.randn(shape, generator=g, device='cuda').mul_(a).to(getattr(torch, dtype))
+               for a in (qk_scale, qk_scale, v_scale))
     mask = None
     if valid is not None:
         mask = (torch.arange(N, device='cuda')[None, :] <
@@ -182,11 +265,56 @@ def _attention_case(name, B, H, N, D, valid, seed):
     nbytes = 4 * B * H * N * D * 2 + (0 if mask is None else B * N)
     flops = sum(4 * H * N * kb * D for kb in keys)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-    return dict(name=name, q=q, k=k, v=v, mask=mask, shape=[B, H, N, D],
+    return dict(name=name, q=q, k=k, v=v, mask=mask, shape=[B, H, N, D], dtype=dtype,
+                reference='plain' if qk_scale == 0.5 else 'fp64',
                 bound_ms=max(t_bytes, t_ops), bound_by='bytes' if t_bytes >= t_ops else 'operations')
 
 
-def phase_kernels():
+def _previous_flash(lib, q, k, v, mask, scale: float):
+    """One launch of the previous flash design through its C entry, on
+    contiguous (B, H, N, D) q, k, v and an optional (B, 1, 1, N) bool key
+    mask, into the current kernel's (B, N, H, D) output storage."""
+    import torch
+    B, H, N, D = q.shape
+    out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    key_mask = None if mask is None else mask.reshape(B, N)
+    rc = lib.timm_flash_attention_fwd(
+        {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}[q.dtype], D,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if key_mask is None else key_mask.data_ptr(), out.data_ptr(), B, H, N,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        0 if key_mask is None else key_mask.stride(0), scale,
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f'previous flash kernel launch failed ({rc})')
+    return out
+
+
+def _fp64_oracle(q, k, v, mask):
+    """Attention at the kernel's exact rounding point (q * scale rounded to
+    q's type), the rest in fp64: the output and the softmax-weighted |v|."""
+    import torch
+    scale = torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype)
+    s = (q * scale).double() @ k.double().transpose(-2, -1)
+    if mask is not None:
+        s = s.masked_fill(~mask, float('-inf'))
+    p = torch.softmax(s, dim=-1)
+    return p @ v.double(), p @ v.double().abs()
+
+
+def _held_to(c, out, reference):
+    """(max abs error, the check's measure, the measure's limit): against
+    the plain version, max abs within PARITY_TOL; against the fp64 oracle,
+    the largest ratio of error to the per-element bound, within 1."""
+    if c['reference'] == 'plain':
+        err = float((out.float() - reference.float()).abs().max())
+        return err, err, PARITY_TOL
+    o, pv_abs = reference
+    diff = (out.double() - o).abs()
+    bound = 2.0 ** -SHARP_PRECISION_BITS[c['dtype']] * (pv_abs + o.abs()) + SHARP_SLACK
+    return float(diff.max()), float((diff / bound).max()), 1.0
+
+
+def phase_kernels(previous_lib):
     import torch
     import torch.nn.functional as F
     from timm_tpu_torch.kernels import flash_attention, flash_attention_reference
@@ -195,27 +323,58 @@ def phase_kernels():
         _attention_case('vit_b16_pad256', 64, 12, 256, 64, [197] * 64, 1),
         _attention_case('masked_n576', 16, 12, 576, 64,
                         [max(1, int(576 * 0.8) - 8 * i) for i in range(16)], 2),
+        # the serving bucket whose grid is under one wave of blocks
+        _attention_case('vit_b16_bucket1', 1, 12, 197, 64, None, 3),
+        _attention_case('vit_b16_bucket64_fp16', 64, 12, 197, 64, None, 4, dtype='float16'),
+        # scores with a standard deviation of 4: the running max changes from
+        # key tile to key tile, so the alpha rescale carries the result
+        _attention_case('vit_b16_bucket64_sharp', 64, 12, 197, 64, [197 - 3 * i for i in range(64)],
+                        5, qk_scale=2.0, v_scale=1.0),
     ]
     rows = []
     for c in cases:
         q, k, v, mask = c['q'], c['k'], c['v'], c['mask']
+        scale = torch.tensor(c['shape'][-1] ** -0.5, dtype=q.dtype).item()
         launches_before = flash_attention.launches
         with torch.inference_mode():
             out = flash_attention(q, k, v, mask=mask)
-            ref = flash_attention_reference(q, k, v, mask=mask)
+            previous_out = _previous_flash(previous_lib, q, k, v, mask, scale)
+            if c['reference'] == 'plain':
+                ref = flash_attention_reference(q, k, v, mask=mask)
+            else:
+                ref = _fp64_oracle(q, k, v, mask)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(out).all()), f'{c["name"]}: non-finite kernel output')
-            err = float((out.float() - ref.float()).abs().max())
-            kernel_ms = time_ms(lambda: flash_attention(q, k, v, mask=mask))
+            err, measure, limit = _held_to(c, out, ref)
+            previous_err, previous_measure, _ = _held_to(c, previous_out, ref)
+            del out, previous_out, ref
+            # device time (graph replay) and a caller's time (eager calls,
+            # the wrapper's host time included), the previous design's the same way
+            kernel_ms = graph_ms(lambda: flash_attention(q, k, v, mask=mask))
+            call_ms = time_ms(lambda: flash_attention(q, k, v, mask=mask))
+            previous_ms = graph_ms(lambda: _previous_flash(previous_lib, q, k, v, mask, scale))
+            previous_call_ms = time_ms(lambda: _previous_flash(previous_lib, q, k, v, mask, scale))
             plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, mask=mask), iters=10)
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-        rows.append({'case': c['name'], 'shape': c['shape'], 'dtype': 'bfloat16',
-                     'masked': mask is not None, 'max_abs_err': err, 'tol': PARITY_TOL,
-                     'kernel_ms': kernel_ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
+            library_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        rows.append({'case': c['name'], 'shape': c['shape'], 'dtype': c['dtype'],
+                     'masked': mask is not None, 'reference': c['reference'],
+                     'max_abs_err': err,
+                     'tol': PARITY_TOL if c['reference'] == 'plain' else
+                     f'2^-{SHARP_PRECISION_BITS[c["dtype"]]} (softmax-weighted |v| + |o|) '
+                     f'+ {SHARP_SLACK} per element',
+                     'error_over_bound': None if c['reference'] == 'plain' else measure,
+                     'kernel_ms': kernel_ms, 'call_ms': call_ms, 'plain_ms': plain_ms,
+                     'library_ms': library_ms,
+                     'previous_ms': previous_ms, 'previous_call_ms': previous_call_ms,
+                     'previous_max_abs_err': previous_err,
                      'bound_ms': c['bound_ms'], 'bound_by': c['bound_by'],
-                     # the check, the warm-up and the timed launches of this case
+                     'bound_share': c['bound_ms'] / kernel_ms,
+                     'previous_bound_share': c['bound_ms'] / previous_ms,
+                     # the check, the warm-ups, the captures and the timed launches of this case
                      'launches': flash_attention.launches - launches_before})
-        check(err <= PARITY_TOL, f'{c["name"]}: kernel vs plain max abs err {err} > {PARITY_TOL}')
+        check(measure <= limit, f'{c["name"]}: kernel vs {c["reference"]}: {measure} > {limit}')
+        check(previous_measure <= limit,
+              f'{c["name"]}: previous kernel vs {c["reference"]}: {previous_measure} > {limit}')
     emit({'phase': 'kernels', 'kernel': 'flash_attention',
           'replaces': 'timm_tpu/kernels/flash_attention.py:79 (_fwd_kernel)', 'cases': rows})
     return rows
@@ -312,7 +471,7 @@ def phase_fused_adamw():
                      'm_within_one_ulp_or_tol': m_ok,
                      'nan_step_bit_identical': nan_step_kept, 'count_after': int(k[4]),
                      'kernel_ms': kernel_ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
-                     'bound_ms': bound_ms, 'bound_by': bound_by})
+                     'bound_ms': bound_ms, 'bound_by': bound_by, 'bound_share': bound_ms / kernel_ms})
         for name in ('p', 'v', 'ema'):
             check(errs[name] <= tols[name],
                   f'fused_adamw {mu}: {name} max abs err {errs[name]} > {tols[name]}')
@@ -368,12 +527,31 @@ def _within_one_ulp(out, ref, mantissa_bits: int, floor: float) -> bool:
     return bool(((out.float() - r).abs() <= ulp.clamp_min(floor)).all())
 
 
-def phase_augment_epilogue():
+def _previous_augment(lib, image, lam, use_cutmix, bbox, erase_box, *, mean, std, re_mean, out_dtype):
+    """One launch of the previous augment design through its C entry (4 or
+    1 bytes a thread)."""
+    import torch
+    b, h, w, c = image.shape
+    k = erase_box.shape[1]
+    out = torch.empty(image.shape, dtype=out_dtype, device=image.device)
+
+    def floats(values):
+        return (ctypes.c_float * 4)(*[float(np.float32(x)) for x in values])
+    rc = lib.timm_augment_epilogue(
+        image.data_ptr(), out.data_ptr(), {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}[out_dtype],
+        lam.data_ptr(), use_cutmix.data_ptr(), int(use_cutmix.dtype == torch.bool), bbox.data_ptr(),
+        erase_box.data_ptr() if k else None, b, h, w, c, k, floats(mean), floats(std), floats(re_mean),
+        4 if (h * w * c) % 4 == 0 else 1, torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f'previous augment kernel launch failed ({rc})')
+    return out
+
+
+def phase_augment_epilogue(previous_lib):
     """The augment-epilogue kernel against its plain version on the card:
     the registry's two cases (mix_erase with K 1, no_mix) at batch 64 and
     128 at 224 px with fp32 out, and two edge cases (odd batch, W*C not a
     multiple of 4, K 3, bf16 out; H*W*C a multiple of 4 or odd); then
-    kernel, plain and bound times."""
+    kernel, previous design, plain and bound times."""
     import torch
     from timm_tpu_torch.kernels import augment_epilogue, augment_epilogue_reference
     kw = dict(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225), re_mean=(0.485, 0.456, 0.406))
@@ -392,22 +570,34 @@ def phase_augment_epilogue():
         args, dt = c['args'], c['out_dtype']
         launches_before = augment_epilogue.launches
         out = augment_epilogue(*args, out_dtype=dt, **kw)
+        previous_out = _previous_augment(previous_lib, *args, out_dtype=dt, **kw)
         ref = augment_epilogue_reference(*args, out_dtype=dt, **kw)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         ok = err <= AUGMENT_TOL if dt == torch.float32 else _within_one_ulp(out, ref, 7, AUGMENT_TOL)
-        kernel_ms = time_ms(lambda: augment_epilogue(*args, out_dtype=dt, **kw))
+        previous_ok = (bool(torch.equal(previous_out, ref)) if dt == torch.float32
+                       else _within_one_ulp(previous_out, ref, 7, AUGMENT_TOL))
+        kernel_ms = graph_ms(lambda: augment_epilogue(*args, out_dtype=dt, **kw))
+        call_ms = time_ms(lambda: augment_epilogue(*args, out_dtype=dt, **kw))
+        previous_ms = graph_ms(lambda: _previous_augment(previous_lib, *args, out_dtype=dt, **kw))
+        previous_call_ms = time_ms(lambda: _previous_augment(previous_lib, *args, out_dtype=dt, **kw))
         plain_ms = time_ms(lambda: augment_epilogue_reference(*args, out_dtype=dt, **kw), iters=10)
         rows.append({'case': c['name'], 'shape': c['shape'], 'boxes': c['boxes'], 'mix': c['mix'],
                      'out_dtype': str(dt).replace('torch.', ''), 'max_abs_err': err,
+                     'bit_identical': bool(torch.equal(out, ref)),
                      'tol': AUGMENT_TOL if dt == torch.float32 else 'one bf16 ulp, at least 1e-6',
                      'within_tol': ok, 'finite': bool(torch.isfinite(out).all()),
-                     'kernel_ms': kernel_ms, 'plain_ms': plain_ms, 'library_ms': None,
+                     'kernel_ms': kernel_ms, 'call_ms': call_ms, 'plain_ms': plain_ms,
+                     'library_ms': None, 'previous_ms': previous_ms,
+                     'previous_call_ms': previous_call_ms, 'previous_within_tol': previous_ok,
                      'bound_ms': c['bound_ms'], 'bound_by': c['bound_by'],
+                     'bound_share': c['bound_ms'] / kernel_ms,
+                     'previous_bound_share': c['bound_ms'] / previous_ms,
                      'launches': augment_epilogue.launches - launches_before})
         check(ok, f'{c["name"]}: kernel vs plain max abs err {err} outside the tolerance')
+        check(previous_ok, f'{c["name"]}: previous kernel vs plain outside the tolerance')
         check(rows[-1]['finite'], f'{c["name"]}: non-finite kernel output')
-        del out, ref
+        del out, previous_out, ref
     emit({'phase': 'kernels', 'kernel': 'augment_epilogue',
           'replaces': 'timm_tpu/kernels/augment_epilogue.py:55 (_epilogue_kernel)', 'cases': rows})
     del cases
@@ -960,10 +1150,10 @@ def main() -> int:
     t0 = time.perf_counter()
     try:
         device = phase_device()
-        phase_build()
-        rows = phase_kernels()
+        previous = phase_build()
+        rows = phase_kernels(previous['flash_attention'])
         adamw_rows = phase_fused_adamw()
-        augment_rows = phase_augment_epilogue()
+        augment_rows = phase_augment_epilogue(previous['augment_epilogue'])
         phase_model()
         serve_launches, served_model = phase_serve()
         phase_breakdown(served_model)
@@ -987,10 +1177,16 @@ def main() -> int:
                      + input_launches['flash_attention']),
         'launches_by_path': {'serve': serve_launches, 'train': train_launches['flash_attention'],
                              'input_train': input_launches['flash_attention']},
-        'max_abs_err': max(r['max_abs_err'] for r in rows),
-        'ms': main_row['kernel_ms'], 'plain_ms': main_row['plain_ms'],
+        # against the plain version; the sharp case's error over its fp64 bound
+        'max_abs_err': max(r['max_abs_err'] for r in rows if r['reference'] == 'plain'),
+        'sharp_error_over_bound': max(r['error_over_bound'] for r in rows
+                                      if r['reference'] != 'plain'),
+        'ms': main_row['kernel_ms'], 'call_ms': main_row['call_ms'],
+        'plain_ms': main_row['plain_ms'],
         'bound_ms': main_row['bound_ms'], 'bound_by': main_row['bound_by'],
-        'library_ms': main_row['library_ms'],
+        'bound_share': main_row['bound_share'], 'library_ms': main_row['library_ms'],
+        'previous_ms': main_row['previous_ms'], 'previous_call_ms': main_row['previous_call_ms'],
+        'previous_source': 'timm_tpu_torch/kernels/csrc/previous/flash_attention.cu',
         'backward_plain_ms_per_layer': attn_bwd_ms,
         'backward_library_ms_per_layer': attn_bwd_library_ms,
     }, {
@@ -1004,7 +1200,10 @@ def main() -> int:
                            for r in adamw_rows),
         'ms': adamw_row['kernel_ms'], 'plain_ms': adamw_row['plain_ms'],
         'bound_ms': adamw_row['bound_ms'], 'bound_by': adamw_row['bound_by'],
-        'library_ms': adamw_row['library_ms'],
+        'bound_share': adamw_row['bound_share'], 'library_ms': adamw_row['library_ms'],
+        # unchanged since it was ported: its previous design is itself
+        'previous_ms': adamw_row['kernel_ms'],
+        'previous_source': 'timm_tpu_torch/kernels/csrc/fused_adamw.cu',
     }, {
         'name': 'augment_epilogue', 'route': 'cuda',
         'source': 'timm_tpu_torch/kernels/csrc/augment_epilogue.cu',
@@ -1015,9 +1214,14 @@ def main() -> int:
         'max_abs_err': max(r['max_abs_err'] for r in augment_rows if r['out_dtype'] == 'float32'),
         'bf16_within_one_ulp': all(r['within_tol'] for r in augment_rows
                                    if r['out_dtype'] == 'bfloat16'),
-        'ms': augment_row['kernel_ms'], 'plain_ms': augment_row['plain_ms'],
+        'bit_identical_fp32': all(r['bit_identical'] for r in augment_rows
+                                  if r['out_dtype'] == 'float32'),
+        'ms': augment_row['kernel_ms'], 'call_ms': augment_row['call_ms'],
+        'plain_ms': augment_row['plain_ms'],
         'bound_ms': augment_row['bound_ms'], 'bound_by': augment_row['bound_by'],
-        'library_ms': None,
+        'bound_share': augment_row['bound_share'], 'library_ms': None,
+        'previous_ms': augment_row['previous_ms'], 'previous_call_ms': augment_row['previous_call_ms'],
+        'previous_source': 'timm_tpu_torch/kernels/csrc/previous/augment_epilogue.cu',
     }], 'seconds': time.perf_counter() - t0})
     print(device['nvidia_smi'], flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': device['name'],

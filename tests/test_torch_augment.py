@@ -248,3 +248,70 @@ def test_kernel_on_card_matches_plain():
         augment_epilogue(wide, *args[1:], mean=(0,) * 5, std=(1,) * 5)
     with pytest.raises(NotImplementedError, match='contiguous'):
         augment_epilogue(image.transpose(1, 2), *args[1:], **kw)
+
+
+def _bits(t):
+    """The raw bits of a float tensor, so -0.0 and +0.0 differ."""
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+# (height, width) of 3-channel images whose H*W*C is a multiple of 16, of
+# 4 and not 16, and odd: the kernel reads 16, 4 and 1 bytes a thread
+ACCESS_SHAPES = {16: (32, 32), 4: (7, 4), 1: (7, 5)}
+
+
+def _card_batch(rng, b, h, w, k, mode):
+    """A uint8 batch on the card with K erase boxes and per-row mixing:
+    'cutmix' every row pastes, 'blend' every row blends, 'lam_one' rows
+    cycle through lam == 1 without cutmix, a blend and a paste."""
+    image = rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)
+    boxes = np.zeros((b, k, 4), np.int32)
+    for i in range(b):
+        for j in range(k):
+            eh, ew = rng.integers(1, h // 2 + 2), rng.integers(1, w // 2 + 2)
+            boxes[i, j] = (rng.integers(0, h - eh + 1), rng.integers(0, w - ew + 1), eh, ew)
+    lam = rng.uniform(0.2, 1, b).astype(np.float32)
+    cut = np.full(b, mode == 'cutmix', np.int32)
+    if mode == 'lam_one':
+        lam[0::3] = 1.0
+        cut[2::3] = 1
+    yl, xl = rng.integers(0, h // 2 + 1, b), rng.integers(0, w // 2 + 1, b)
+    bbox = np.stack([yl, yl + h // 2, xl, xl + w // 2], 1).astype(np.int32)
+    return [torch.from_numpy(a).cuda() for a in (image, lam, cut, bbox, boxes)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('mode', ['cutmix', 'blend', 'lam_one'])
+@pytest.mark.parametrize('width', list(ACCESS_SHAPES))
+def test_kernel_bit_identical_on_card(width, mode):
+    """The kernel against its plain version on the card, bit for bit in
+    fp32 and fp16 out and within one bf16 ulp in bf16, for each access
+    width, K in {0, 1, 3} boxes, an odd and an even batch, and cutmix,
+    blend and lam == 1 rows, with a fill of -0.0 among them."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from timm_tpu_torch.kernels.augment_epilogue import _access_width
+    h, w = ACCESS_SHAPES[width]
+    rng = np.random.default_rng(width * 10 + len(mode))
+    fills = [(0.485, 0.456, 0.406)]
+    if mode == 'lam_one':
+        fills.append((-0.0, 0.5, 0.25))
+    for b in (7, 8):
+        for k in (0, 1, 3):
+            args = _card_batch(rng, b, h, w, k, mode)
+            assert _access_width(args[0]) == width
+            for re_mean in fills:
+                for dtype in (torch.float32, torch.float16, torch.bfloat16):
+                    kw = dict(mean=(0.0, 0.456, 0.406), std=(0.229, 0.224, 0.225),
+                              re_mean=re_mean, out_dtype=dtype)
+                    before = augment_epilogue.launches
+                    out = augment_epilogue(*args, **kw)
+                    assert augment_epilogue.launches == before + 1
+                    ref = augment_epilogue_reference(*args, **kw)
+                    torch.cuda.synchronize()
+                    where = f'b {b}, k {k}, fill {re_mean}, {dtype}'
+                    if dtype == torch.bfloat16:
+                        o, r = out.float().cpu().numpy(), ref.float().cpu().numpy()
+                        assert (np.abs(o - r) <= _ulp(r, 7)).all(), where
+                    else:
+                        assert torch.equal(_bits(out), _bits(ref)), where

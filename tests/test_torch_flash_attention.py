@@ -146,3 +146,149 @@ def test_kernel_matches_plain_on_card(dtype, head_dim):
         assert out.dtype == dtype and out.shape == q.shape
         err = (out.float() - ref.float()).abs().max().item()
         assert err <= tol, f'max abs err {err} > {tol}'
+
+
+def _card_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _fused_qkv_views(B, N, H, D, dtype, seed, qk_scale=0.5, v_scale=0.5):
+    """q, k, v as the strided (B, H, N, D) views of one fused (B, N, 3*H*D)
+    projection, as the model's attention passes them: standard normal times
+    ``qk_scale`` for q and k, times ``v_scale`` for v."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    qkv = torch.randn(B, N, 3, H * D, generator=g, device='cuda')
+    qkv[:, :, :2] *= qk_scale
+    qkv[:, :, 2] *= v_scale
+    return qkv.to(dtype).view(B, N, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def _plain(q, k, v, mask):
+    """The plain version, which takes the key-padding mask as (B, 1, 1, N)."""
+    if mask is not None:
+        mask = mask.view(mask.shape[0], 1, 1, mask.shape[-1])
+    return flash_attention_reference(q, k, v, mask=mask)
+
+
+def _held_to_plain(q, k, v, mask, tol=2e-2):
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, mask=mask)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = _plain(q, k, v, mask)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol, f'max abs err {err} > {tol}'
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('head_dim', [64, 256])
+@pytest.mark.parametrize('n', [1, 37, 197, 200, 257, 577])
+def test_kernel_ragged_n_and_masks_on_card(n, head_dim, dtype):
+    """The 16-bit kernel against its plain version at ragged N (one key, a
+    partial 8-key block, partial tiles, more than 512 keys), from strided
+    views of one fused qkv projection, unmasked and with key-padding masks
+    of several valid lengths per batch row, some ending inside an 8-key
+    block."""
+    _card_or_skip()
+    B, H = 4, 3
+    q, k, v = _fused_qkv_views(B, n, H, head_dim, dtype, seed=n + head_dim)
+    assert not q.is_contiguous()
+    valid = torch.tensor([n, max(1, n - 3), min(n, 13), min(n, 66)], device='cuda')
+    mask = torch.arange(n, device='cuda')[None, :] < valid[:, None]
+    for m in (None, mask, mask.view(B, 1, 1, n)):
+        _held_to_plain(q, k, v, m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+def test_kernel_batch_one_on_card(dtype):
+    """Batch 1 at ViT-B/16's shape (12 heads, N 197, D 64): the serving
+    bucket whose grid is under one wave of blocks."""
+    _card_or_skip()
+    q, k, v = _fused_qkv_views(1, 197, 12, 64, dtype, seed=1)
+    _held_to_plain(q, k, v, None)
+
+
+# mantissa bits of each 16-bit type, its explicit ones plus the implicit one:
+# rounding to it moves a value by at most 2^-bits of its magnitude
+_PRECISION_BITS = {torch.bfloat16: 8, torch.float16: 11}
+
+
+def _fp64_oracle(q, k, v, mask):
+    """The kernel's function at its rounding points where they are exact
+    (q * scale rounded to q's type), the rest in fp64: the output and the
+    softmax-weighted |v| for each query row."""
+    scale = torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype)
+    s = (q * scale).double() @ k.double().transpose(-2, -1)
+    if mask is not None:
+        s = s.masked_fill(~mask.view(mask.shape[0], 1, 1, mask.shape[-1]), float('-inf'))
+    p = torch.softmax(s, dim=-1)
+    return p @ v.double(), p @ v.double().abs()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('head_dim', [64, 128, 256])
+@pytest.mark.parametrize('n', [37, 197, 577])
+def test_kernel_sharp_scores_on_card(n, head_dim, dtype):
+    """Scores spread over several units (q and k standard normal, then twice
+    that: score std 1 and 4), so the running max changes from key tile to
+    key tile and the alpha rescale of the sum and the accumulator carries
+    the result. The plain version rounds the scores to the input type, which
+    at such scores moves p by percents; so the kernel is held to an fp64
+    oracle instead, within the bound its own roundings allow: p rounded to
+    the input type moves the output by at most 2^-bits of the softmax-
+    weighted |v|, the final rounding by 2^-bits of |o|, and 1e-4 covers
+    ex2.approx, fp32 sums and fp16's subnormal p."""
+    _card_or_skip()
+    B, H = 4, 3
+    valid = torch.tensor([n, max(1, n - 3), min(n, 13), min(n, 66)], device='cuda')
+    key_mask = torch.arange(n, device='cuda')[None, :] < valid[:, None]
+    for qk_scale in (1.0, 2.0):
+        q, k, v = _fused_qkv_views(B, n, H, head_dim, dtype, seed=7 * n + head_dim,
+                                   qk_scale=qk_scale, v_scale=1.0)
+        for mask in (None, key_mask):
+            out = flash_attention(q, k, v, mask=mask)
+            torch.cuda.synchronize()
+            o, pv_abs = _fp64_oracle(q, k, v, mask)
+            bound = 2.0 ** -_PRECISION_BITS[dtype] * (pv_abs + o.abs()) + 1e-4
+            excess = ((out.double() - o).abs() / bound).max().item()
+            assert excess <= 1.0, (f'qk_scale {qk_scale}, masked {mask is not None}: '
+                                   f'error {excess:.3f} times its bound')
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize('n', [37, 128, 197])
+def test_kernel_fully_masked_row_on_card(n, dtype):
+    """A batch row whose keys are all masked comes out finite and as the
+    kernel's header states: the sum of v over the N keys divided by the key
+    slots the kernel computes, round_up(N, 8) for bf16 and fp16 and
+    round_up(N, 32) for fp32; the other rows match the plain version."""
+    _card_or_skip()
+    B, H, D = 3, 2, 64
+    q, k, v = _fused_qkv_views(B, n, H, D, dtype, seed=3 * n)
+    v = v + 1  # a mean far from 0, so sum / slots and the mean differ
+    mask = torch.ones(B, n, dtype=torch.bool, device='cuda')
+    mask[1] = False
+    mask[2, n // 2:] = False
+    out = flash_attention(q, k, v, mask=mask)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    block = 32 if dtype == torch.float32 else 8
+    slots = -(-n // block) * block
+    expected = v[1].float().sum(dim=-2, keepdim=True) / slots  # (H, 1, D)
+    tol = 2e-2 if dtype != torch.float32 else 1e-5
+    err = (out[1].float() - expected).abs().max().item()
+    assert err <= tol, f'fully masked row: max abs err {err}'
+    ref = _plain(q, k, v, mask)
+    keep = [0, 2]
+    err = (out[keep].float() - ref[keep].float()).abs().max().item()
+    assert err <= tol, f'max abs err {err}'

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel is one CUDA C++ source under ``csrc/`` with a plain C interface.
-``load_library(name)`` compiles ``csrc/<name>.cu`` with ``nvcc`` for sm_90a
+``load_library(name)`` compiles ``csrc/<name>.cu`` (or ``<source_dir>/<name>.cu``)
+with ``nvcc`` for sm_90a
 into a shared library under ``build/`` (listed in ``.gitignore``), loads it
 with ``ctypes`` and caches it for the process. The library's file name
 carries a hash of the source and the flags, so an edited source is rebuilt
@@ -44,9 +45,9 @@ class BuiltLibrary:
     log: str               # nvcc/ptxas output (registers, shared memory, spills)
 
 
-_LIBS: Dict[str, BuiltLibrary] = {}
-_LOCK = threading.Lock()                 # guards _LOCKS
-_LOCKS: Dict[str, threading.Lock] = {}  # one per kernel: builds of two kernels run side by side
+_LIBS: Dict[Path, BuiltLibrary] = {}
+_LOCK = threading.Lock()                  # guards _LOCKS
+_LOCKS: Dict[Path, threading.Lock] = {}  # one per source: builds of two kernels run side by side
 
 
 def find_nvcc() -> str:
@@ -76,16 +77,16 @@ def _digest(source: Path) -> str:
     return h.hexdigest()[:16]
 
 
-def load_library(name: str) -> BuiltLibrary:
-    """Build (if needed) and load ``csrc/<name>.cu``; raises if nvcc is
-    missing or the build fails, with the compiler's output. Calls for
-    different kernels from different threads build in parallel."""
+def load_library(name: str, source_dir: Path = SOURCE_DIR) -> BuiltLibrary:
+    """Build (if needed) and load ``<source_dir>/<name>.cu``; raises if nvcc
+    is missing or the build fails, with the compiler's output. Calls for
+    different sources from different threads build in parallel."""
+    source = Path(source_dir) / f'{name}.cu'
     with _LOCK:
-        lock = _LOCKS.setdefault(name, threading.Lock())
+        lock = _LOCKS.setdefault(source, threading.Lock())
     with lock:
-        if name in _LIBS:
-            return _LIBS[name]
-        source = SOURCE_DIR / f'{name}.cu'
+        if source in _LIBS:
+            return _LIBS[source]
         if not source.is_file():
             raise FileNotFoundError(f'kernel source {source} does not exist')
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -109,5 +110,5 @@ def load_library(name: str) -> BuiltLibrary:
             os.replace(tmp, target)  # atomic: a reader never sees half a library
             built = True
         entry = BuiltLibrary(name, ctypes.CDLL(str(target)), target, built, seconds, log)
-        _LIBS[name] = entry
+        _LIBS[source] = entry
         return entry

@@ -7,14 +7,26 @@ Port of ``timm_tpu/kernels/augment_epilogue.py``. The kernel
 augment program with 'const' erasing: uint8 -> /255 -> erase K boxes ->
 mixup blend or cutmix paste with the batch-flipped row (which is erased with
 its own boxes) -> (x - mean) / std -> cast, reading the uint8 batch once and
-writing the output once. Its header says how it keeps JAX's rounding points.
+writing the output once. It keeps JAX's rounding points (true divisions by
+255 and by std, two products and a sum for the blend) and equals the plain
+version bit for bit.
+
+What bounds it on an H100 is device memory (5 bytes an element for fp32
+out), with about 45 thread instructions an element to spend at that rate;
+divisions and per-element branches took most of them. So the kernel looks
+k / 255 up in a per-block table of the division's own results, keeps one
+division by std per element, reads per-channel constants and the erase
+boxes from shared memory by index, runs one grid row of blocks per image,
+and moves 16 bytes a thread when H*W*C is a multiple of 16 (else 4, else 1)
+with every load and store of a warp contiguous; its header has the
+details.
 
 ``augment_epilogue`` takes the plain version for CPU tensors only. For CUDA
 tensors it launches the kernel or raises ``NotImplementedError`` outside the
-kernel's contract: contiguous (B, H, W, C) uint8 with C <= 4, K >= 0 boxes,
-``lam`` fp32, ``use_cutmix`` int32 or bool, ``bbox`` and ``erase_box`` int32,
-all on the image's device, fp32, fp16 or bf16 out. There is no fallback.
-Each launch adds one to ``augment_epilogue.launches``.
+kernel's contract: contiguous (B, H, W, C) uint8 with C <= 4 and B <= 65535,
+0 <= K <= 1024 boxes, ``lam`` fp32, ``use_cutmix`` int32 or bool, ``bbox`` and
+``erase_box`` int32, all on the image's device, fp32, fp16 or bf16 out.
+There is no fallback. Each launch adds one to ``augment_epilogue.launches``.
 """
 from __future__ import annotations
 
@@ -32,6 +44,8 @@ __all__ = ['augment_epilogue', 'augment_epilogue_reference']
 _OUT_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _MAX_CHANNELS = 4
 _MAX_ELEMENTS = 1 << 30  # the kernel indexes in int32
+_MAX_BATCH = 65535  # one grid row of blocks per image
+_MAX_BOXES = 1024  # erase boxes of an image and its partner in shared memory
 
 
 def augment_epilogue_reference(image, lam, use_cutmix, bbox, erase_box, *, mean: Sequence[float],
@@ -70,6 +84,8 @@ def _check_contract(image, lam, use_cutmix, bbox, erase_box, channel_vectors, ou
     b, h, w, c = image.shape
     if not 1 <= c <= _MAX_CHANNELS:
         raise NotImplementedError(f'augment_epilogue kernel takes 1 to 4 channels; got {c}')
+    if b > _MAX_BATCH:
+        raise NotImplementedError(f'augment_epilogue kernel takes at most {_MAX_BATCH} images; got {b}')
     if image.numel() > _MAX_ELEMENTS:
         raise NotImplementedError(
             f'augment_epilogue kernel takes at most {_MAX_ELEMENTS} elements; got {image.numel()}')
@@ -84,6 +100,10 @@ def _check_contract(image, lam, use_cutmix, bbox, erase_box, channel_vectors, ou
             raise NotImplementedError(
                 f'augment_epilogue kernel: {k} must be contiguous {shape} of {dtypes}; '
                 f'got {t.dtype} of shape {tuple(t.shape)}')
+    if erase_box.ndim == 3 and erase_box.shape[1] > _MAX_BOXES:
+        raise NotImplementedError(
+            f'augment_epilogue kernel takes at most {_MAX_BOXES} erase boxes an image; '
+            f'got {erase_box.shape[1]}')
     if (erase_box.ndim != 3 or erase_box.shape[0] != b or erase_box.shape[2] != 4
             or erase_box.dtype != torch.int32 or not erase_box.is_contiguous()):
         raise NotImplementedError(
@@ -97,6 +117,13 @@ def _check_contract(image, lam, use_cutmix, bbox, erase_box, channel_vectors, ou
 def _check_devices_cpu(image, *tensors):
     if any(t.device.type != 'cpu' for t in tensors):
         raise NotImplementedError('augment_epilogue: the image is on the CPU and a parameter is not')
+
+
+def _access_width(image: torch.Tensor) -> int:
+    """Bytes a kernel thread reads: 16 or 4 when the image's element count
+    per image and its address are multiples of it, else 1."""
+    _, h, w, c = image.shape
+    return next(n for n in (16, 4, 1) if (h * w * c) % n == 0 and image.data_ptr() % n == 0)
 
 
 def _floats(values):
@@ -126,7 +153,7 @@ def augment_epilogue(image: torch.Tensor, lam: torch.Tensor, use_cutmix: torch.T
     out = torch.empty(image.shape, dtype=out_dtype, device=image.device)
     if out.numel() == 0:
         return out
-    vec = 4 if (h * w * c) % 4 == 0 and image.data_ptr() % 4 == 0 else 1
+    vec = _access_width(image)
     lib = _library()
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream

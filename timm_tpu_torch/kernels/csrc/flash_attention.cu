@@ -1,53 +1,107 @@
 // Forward flash attention for NVIDIA Hopper (sm_90a), bound to Python with ctypes.
 //
 // Replaces the TPU kernel timm_tpu/kernels/flash_attention.py:_fwd_kernel
-// (launched by _flash_fwd_impl). It computes the same function at the same
-// rounding points:
+// (launched by _flash_fwd_impl). Rounding points kept from it:
 //   * q * scale is rounded to the input type before the first product;
 //   * scores are accumulated in fp32;
 //   * masked keys and the ragged key tail beyond N are set to -1e30;
 //   * a running (max, denominator, accumulator) is kept in fp32 per query row;
 //   * p is rounded to v's type before the product with v;
 //   * the output acc / max(l, 1e-30) is rounded to q's type.
-// A query row whose keys are all masked gets p = 1 for every key slot, so it
-// comes out as the sum of the masked keys' v rows over the number of slots
-// (the zero-filled tail included), as in the TPU kernel; the plain version
-// gives the mean of v instead. The ViT token pad never produces such a row
-// because the class token is always a valid key, and no test uses one.
+// Where p is rounded differs. The TPU kernel takes one key block of
+// block_k = min(512, max(128, next_pow2(N))) keys, so for N <= 512 it
+// rounds p against the row's final max. This kernel walks keys in tiles of
+// BK (64; 32 at D = 256) and rounds p against the running max of the tiles
+// seen so far, rescaling the fp32 sum by alpha afterwards, as any
+// multi-block flash kernel does. Why: a warp holds its tile's scores in
+// registers (BK / 2 floats a thread); the whole key range of N = 197 would
+// take 128 and leave none for the accumulator. Both stay within the 2e-2
+// parity tolerance.
+// A query row whose keys are all masked keeps max -1e30, so every key slot
+// the kernel computes gets p = 1: it comes out as the sum of v over its N
+// keys divided by the number of slots computed (slots beyond N hold v = 0).
+// That is round_up(N, 8) for bf16 and fp16, the slots of the 8-key column
+// blocks the kernel runs, and round_up(N, 32) for fp32, whose kernel computes
+// every slot of its 32-key tiles. The TPU kernel divides by
+// round_up(N, block_k) instead, so the two agree only where those are equal:
+// for bf16 and fp16 N = 121-128, 249-256, 505-512, and above 512 the N within
+// 8 below a multiple of 512; for fp32 N = 97-128, 225-256, 481-512, and above
+// 512 the N within 32 below a multiple of 512. The plain version gives the
+// mean of v over the N keys. The ViT token pad never produces such a row:
+// the class token is always a valid key.
 //
-// Design. One thread block of 4 warps per (batch, head, tile of BQ query
-// rows). The block walks the keys in tiles of BK rows staged in shared
-// memory. Both products of a tile (S = Q K^T and O += P V) run on the tensor
-// cores through WMMA (mma.sync, 16x16x16 fragments, fp32 accumulate) for bf16
-// and fp16; fp32 inputs use plain FMA loops so that no input is rounded to
-// TF32. S, P and the fp32 accumulator O live in shared memory, so the online
-// softmax is plain per-row code: each warp owns every fourth row, and a row's
-// max and sum are warp-shuffle reductions. The score matrix never reaches
-// device memory.
+// bf16 and fp16: a register-resident FA2-style kernel. A block of NW warps
+// takes BQ = 16 NW query rows of one (batch, head); each warp owns 16 of
+// them. Q rides in the first cp.async copy group; after the first barrier
+// each warp scales its own rows in shared memory (q * scale rounded to T)
+// and, where registers allow, loads its Q fragments into registers with
+// ldmatrix once; otherwise it re-reads them from shared memory each tile.
+// Both products are mma.sync.m16n8k16 (row.col, fp32 accumulate): S stays in
+// accumulator registers; the online softmax keeps max and sum for the
+// thread's two rows and reduces over the quad with shuffles; e^x is taken as
+// 2^(x log2 e) on the special-function unit (ex2.approx, 2 ulp), from an
+// argument s - m that is already a difference, so equal scores give exactly
+// 1; P is packed to the input type straight from S's accumulators into PV's
+// A operand; O is an fp32 accumulator in registers, rescaled there. K and V
+// tiles go global -> shared with 16-byte cp.async copies into an NS-stage
+// ring, one barrier per tile; rows are padded by 16 bytes so ldmatrix
+// (.trans for V) is free of bank conflicts. The key-padding mask of a tile is
+// read once per tile per warp and held as two ballot words; a full tile with
+// no mask runs straight-line code with no checks at all. The ragged tail runs
+// only the 8-key column blocks that hold a key below N and only the 16-key PV
+// steps up to it; a warp whose rows all lie at or beyond N does no products.
+// O is staged through the warp's own Q rows so the store to (B, N, H, D) is
+// 16 bytes a thread.
+//
+// Block shapes (Config16). D <= 64: 8 warps, so 128 query rows share each
+// K/V tile (half the L2 re-reads of 4 warps), a 3-stage ring, and a cap of
+// 128 registers so that 2 blocks fit an SM; at D = 64, Q fragments held in
+// registers would spill under that cap, so Q is re-read from shared memory
+// (4 ldmatrix a tile beside the 32 of K and V). D = 128: 4 warps, 2 stages,
+// Q in registers. D = 256: 4 warps, key tiles of 32, Q in shared memory.
+//
+// fp32: the shared-memory kernel of the previous design
+// (csrc/previous/flash_attention.cu), kept apart below and chosen by dtype: CUDA-core FMA loops, so no input is rounded to TF32.
 //
 // What bounds it on an H100. At the ViT-B/16 shape (N = 197, D = 64, bf16)
 // the kernel must read q, k, v and write o once: 4 * N * D * 2 bytes per
 // (batch, head) against 4 * N^2 * D operations, N/2 = 98 operations per byte,
-// far under the ~295 bf16 operations per byte at which the tensor cores
-// become the limit. So it is memory-bound: the least time is the bytes over
-// 3.35 TB/s. Staging each K/V tile once per query tile and keeping S and P in
-// shared memory keeps device traffic at that minimum plus the K/V re-reads of
-// the other query tiles, which the 50 MB L2 serves. TMA, wgmma and warp
-// specialisation are left to later work.
+// under the ~295 bf16 operations per byte at which the tensor cores become
+// the limit. So the least time is the bytes over 3.35 TB/s. What holds this
+// kernel above it is latency more than any one unit: with 2 blocks of 8 warps
+// an SM, a block's copies for its first tiles and its arithmetic overlap
+// little, and each K/V element crosses shared memory into registers once per
+// warp (ldmatrix). TMA, wgmma and warp specialisation are later work.
 //
 // The launcher allocates nothing: the caller passes the output buffer.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps
+constexpr int kThreads = 128;  // the fp32 kernel: 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr float kMaskValue = -1e30f;
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const unsigned char* mask;  // (B, N) key-padding mask, 1 = valid key; may be null
+  void* o;
+  int H, N;
+  long long q_sb, q_sh, q_sn;
+  long long k_sb, k_sh, k_sn;
+  long long v_sb, v_sh, v_sn;
+  long long o_sb, o_sh, o_sn;
+  long long mask_sb;
+  float scale;  // already rounded to T by the caller
+};
 
 template <typename T>
 __device__ __forceinline__ float to_float(T x);
@@ -67,61 +121,9 @@ __device__ __forceinline__ __half from_float<__half>(float x) { return __float2h
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
 
-// Tile shape per element type. fp32 tiles are smaller so that D = 256 fits
-// in shared memory.
-template <typename T>
-struct TileRows {
-  static constexpr int BQ = 64;
-  static constexpr int BK = 64;
-};
-template <>
-struct TileRows<float> {
-  static constexpr int BQ = 32;
-  static constexpr int BK = 32;
-};
-
-// Shared-memory layout. Every row is padded by 16 bytes against bank
-// conflicts; every section is a multiple of 128 bytes so that each WMMA
-// fragment pointer stays 32-byte aligned.
-template <typename T, int D>
-struct Layout {
-  static constexpr int BQ = TileRows<T>::BQ;
-  static constexpr int BK = TileRows<T>::BK;
-  static constexpr int LD = D + 16 / sizeof(T);     // Q, K, V rows (T)
-  static constexpr int LDS = BK + 4;                // S rows (fp32)
-  static constexpr int LDP = BK + 16 / sizeof(T);   // P rows (T)
-  static constexpr int LDO = D + 4;                 // O rows (fp32)
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + sizeof(T) * BQ * LD;
-  static constexpr size_t v_off = k_off + sizeof(T) * BK * LD;
-  static constexpr size_t s_off = v_off + sizeof(T) * BK * LD;
-  static constexpr size_t p_off = s_off + sizeof(float) * BQ * LDS;
-  static constexpr size_t o_off = p_off + sizeof(T) * BQ * LDP;
-  static constexpr size_t m_off = o_off + sizeof(float) * BQ * LDO;
-  static constexpr size_t l_off = m_off + sizeof(float) * BQ;
-  static constexpr size_t bytes = l_off + sizeof(float) * BQ;
-  static_assert(k_off % 128 == 0 && v_off % 128 == 0 && s_off % 128 == 0, "alignment");
-  static_assert(p_off % 128 == 0 && o_off % 128 == 0 && m_off % 128 == 0, "alignment");
-};
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const unsigned char* mask;  // (B, N) key-padding mask, 1 = valid key; may be null
-  void* o;
-  int H, N;
-  long long q_sb, q_sh, q_sn;
-  long long k_sb, k_sh, k_sn;
-  long long v_sb, v_sh, v_sn;
-  long long o_sb, o_sh, o_sn;
-  long long mask_sb;
-  float scale;  // already rounded to T by the caller
-};
-
 // Copy rows [row0, row0 + R) of a (N, D) slab into shared memory with 16-byte
-// vector loads; rows at or beyond N are zero-filled. When `scale` is given,
-// each element becomes T(float(x) * scale), the TPU kernel's q pre-scaling.
+// vector loads; rows at or beyond N are zero-filled. When `kScale`, each
+// element becomes T(float(x) * scale), the TPU kernel's q pre-scaling.
 template <typename T, int D, int R, int LD, bool kScale>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, long long stride_n, int row0, int n,
                                           float scale) {
@@ -143,93 +145,230 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long stride
   }
 }
 
-// S = Q K^T for one tile: tensor cores for 16-bit types.
-template <typename T, int D>
-__device__ __forceinline__ void tile_scores(const T* qs, const T* ks, float* ss) {
-  using L = Layout<T, D>;
-  using namespace nvcuda;
-  const int warp = threadIdx.x / 32;
-  constexpr int kTilesN = L::BK / 16;
-  constexpr int kTiles = (L::BQ / 16) * kTilesN;
-  for (int t = warp; t < kTiles; t += kWarps) {
-    const int ti = t / kTilesN, tj = t % kTilesN;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
+// ===== bf16 / fp16: registers, mma.sync, cp.async ==========================
+
+// Block shape of the 16-bit kernel: NW warps of 16 query rows each, key
+// tiles of BK rows in an NS-stage cp.async ring, at least MINB blocks an SM
+// (a register cap for ptxas), and the warp's Q fragments held in registers
+// for the whole key loop (QR) or re-read from shared memory each tile.
+template <int D, int NW_, int NS_, int MINB_, bool QR_>
+struct Tile16 {
+  static constexpr int NW = NW_, NS = NS_, MINB = MINB_;
+  static constexpr int kBlock = NW * 32;
+  static constexpr int BQ = NW * 16;
+  static constexpr int BK = D == 256 ? 32 : 64;
+  static constexpr int LD = D + 8;           // row pitch in elements: 16 bytes of padding
+  static constexpr bool kQInRegs = QR_;
+  static constexpr int q_bytes = BQ * LD * 2;
+  static constexpr int kv_bytes = BK * LD * 2;  // one stage of K or of V
+  static constexpr int bytes = q_bytes + 2 * NS * kv_bytes;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled when !valid (src is then not read)
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
+  const int src_bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most N of this thread's most recent copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a b for one 16x8x16 tile: a row-major (4 regs), b col-major (2 regs)
+template <typename T>
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1);
+
+template <>
+__device__ __forceinline__ void mma_16816<__nv_bfloat16>(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <>
+__device__ __forceinline__ void mma_16816<__half>(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                                  uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to T, the lower column in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit (2 ulp), flushing results below 2^-126
+// to zero; e^x is taken as 2^(x log2 e) on an argument x = s - m that is
+// already a difference, so equal scores give exactly 1
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Fragment layout of mma.m16n8k16 for lane = 4 g + t: the accumulator of an
+// 8-column block holds (row g, cols 2t, 2t+1) in [0], [1] and (row g + 8,
+// the same cols) in [2], [3].
+//
+// One key tile for one warp: S = Q K^T, the online softmax update, O += P V.
+// kGuard = false is a full tile with no key mask: no validity checks and
+// straight-line code. Otherwise keys at or beyond N and masked keys take
+// -1e30; only the nb 8-key column blocks that hold a key below N and the ns
+// 16-key PV steps up to it run.
+template <typename T, int D, typename L, bool kGuard>
+__device__ __forceinline__ void attend_tile(const T* qw, const T* kt, const T* vt, const uint32_t (&qf)[L::kQInRegs ? D / 16 : 1][4],
+                                            float (&o)[D / 8][4], float (&m)[2], float (&l)[2], int nvalid,
+                                            uint32_t valid_even, uint32_t valid_odd) {
+  constexpr int BK = L::BK, LD = L::LD;
+  constexpr int NB = BK / 8;   // 8-key column blocks of S in a tile
+  constexpr int NKS = D / 16;  // k-steps of S = Q K^T
+  constexpr int ND = D / 8;    // 8-column blocks of O
+  const int lane = threadIdx.x % 32;
+  const int t4 = lane & 3;
+  const int nb = kGuard ? (nvalid + 7) / 8 : NB;
+  const int ns = kGuard ? (nvalid + 15) / 16 : NB / 2;
+
+  // S = (q scale) K^T
+  float s[NB][4];
 #pragma unroll
-    for (int k0 = 0; k0 < D; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> b;
-      wmma::load_matrix_sync(a, qs + ti * 16 * L::LD + k0, L::LD);
-      wmma::load_matrix_sync(b, ks + tj * 16 * L::LD + k0, L::LD);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(ss + ti * 16 * L::LDS + tj * 16, acc, L::LDS, wmma::mem_row_major);
-  }
-}
-
-// fp32 inputs: FMA loops, so no operand is rounded to TF32.
-template <int D>
-__device__ __forceinline__ void tile_scores_fp32(const float* qs, const float* ks, float* ss) {
-  using L = Layout<float, D>;
-  for (int i = threadIdx.x; i < L::BQ * L::BK; i += kThreads) {
-    const int r = i / L::BK, c = i % L::BK;
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int k = 0; k < D; ++k) acc = fmaf(qs[r * L::LD + k], ks[c * L::LD + k], acc);
-    ss[r * L::LDS + c] = acc;
-  }
-}
-
-// O += P V for one tile: tensor cores for 16-bit types.
-template <typename T, int D>
-__device__ __forceinline__ void tile_accumulate(const T* ps, const T* vs, float* os) {
-  using L = Layout<T, D>;
-  using namespace nvcuda;
-  const int warp = threadIdx.x / 32;
-  constexpr int kTilesN = D / 16;
-  constexpr int kTiles = (L::BQ / 16) * kTilesN;
-  for (int t = warp; t < kTiles; t += kWarps) {
-    const int ti = t / kTilesN, tj = t % kTilesN;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    float* o_tile = os + ti * 16 * L::LDO + tj * 16;
-    wmma::load_matrix_sync(acc, o_tile, L::LDO, wmma::mem_row_major);
+  for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-    for (int k0 = 0; k0 < L::BK; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b;
-      wmma::load_matrix_sync(a, ps + ti * 16 * L::LDP + k0, L::LDP);
-      wmma::load_matrix_sync(b, vs + k0 * L::LD + tj * 16, L::LD);
-      wmma::mma_sync(acc, a, b, acc);
+  for (int kk = 0; kk < NKS; ++kk) {
+    uint32_t a[4];
+    if constexpr (L::kQInRegs) {
+      a[0] = qf[kk][0];
+      a[1] = qf[kk][1];
+      a[2] = qf[kk][2];
+      a[3] = qf[kk][3];
+    } else {
+      ldmatrix_x4(a, smem_addr(qw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8));
     }
-    wmma::store_matrix_sync(o_tile, acc, L::LDO, wmma::mem_row_major);
+#pragma unroll
+    for (int jj = 0; jj < NB / 2; ++jj) {
+      if (!kGuard || 2 * jj < nb) {
+        // keys 16 jj .. 16 jj + 15, columns 16 kk .. 16 kk + 15
+        uint32_t bk[4];
+        const int key = jj * 16 + (lane & 7) + ((lane >> 4) << 3);
+        const int col = kk * 16 + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4(bk, smem_addr(kt + key * LD + col));
+        mma_16816<T>(s[2 * jj], a, bk[0], bk[1]);
+        if (!kGuard || 2 * jj + 1 < nb) mma_16816<T>(s[2 * jj + 1], a, bk[2], bk[3]);
+      }
+    }
+  }
+
+  // online softmax over the tile, rows g and g + 8
+  float mx[2] = {kMaskValue, kMaskValue};
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    if (!kGuard || j < nb) {
+      if (kGuard) {
+        const int bit = 4 * j + t4;
+        if (!((valid_even >> bit) & 1u)) s[j][0] = s[j][2] = kMaskValue;
+        if (!((valid_odd >> bit) & 1u)) s[j][1] = s[j][3] = kMaskValue;
+      }
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = exp2_approx((m[r] - m_new) * kLog2e);
+    m[r] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    if (!kGuard || j < nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2_approx((s[j][e] - m[e >> 1]) * kLog2e);
+        rs[e >> 1] += s[j][e];
+      }
+    }
+  }
+  l[0] = l[0] * alpha[0] + rs[0];
+  l[1] = l[1] * alpha[1] + rs[1];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    o[j][0] *= alpha[0];
+    o[j][1] *= alpha[0];
+    o[j][2] *= alpha[1];
+    o[j][3] *= alpha[1];
+  }
+
+  // O += P V, P rounded to T straight from the S accumulators
+#pragma unroll
+  for (int st = 0; st < NB / 2; ++st) {
+    if (!kGuard || st < ns) {
+      const uint32_t a[4] = {pack2<T>(s[2 * st][0], s[2 * st][1]), pack2<T>(s[2 * st][2], s[2 * st][3]),
+                             pack2<T>(s[2 * st + 1][0], s[2 * st + 1][1]),
+                             pack2<T>(s[2 * st + 1][2], s[2 * st + 1][3])};
+#pragma unroll
+      for (int jd = 0; jd < ND / 2; ++jd) {
+        // keys 16 st .. 16 st + 15, columns 16 jd .. 16 jd + 15 of V
+        uint32_t bv[4];
+        const int key = st * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int col = jd * 16 + (lane >> 4) * 8;
+        ldmatrix_x4_trans(bv, smem_addr(vt + key * LD + col));
+        mma_16816<T>(o[2 * jd], a, bv[0], bv[1]);
+        mma_16816<T>(o[2 * jd + 1], a, bv[2], bv[3]);
+      }
+    }
   }
 }
 
-template <int D>
-__device__ __forceinline__ void tile_accumulate_fp32(const float* ps, const float* vs, float* os) {
-  using L = Layout<float, D>;
-  for (int i = threadIdx.x; i < L::BQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    float acc = os[r * L::LDO + d];
-#pragma unroll 8
-    for (int c = 0; c < L::BK; ++c) acc = fmaf(ps[r * L::LDP + c], vs[c * L::LD + d], acc);
-    os[r * L::LDO + d] = acc;
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
-  using L = Layout<T, D>;
-  constexpr int BQ = L::BQ, BK = L::BK;
+template <typename T, int D, typename L>
+__global__ void __launch_bounds__(L::kBlock, L::MINB) flash_fwd_kernel(const Params p) {
+  constexpr int BQ = L::BQ, BK = L::BK, LD = L::LD, NS = L::NS;
+  constexpr int NKS = D / 16;     // k-steps of S = Q K^T
+  constexpr int ND = D / 8;       // 8-column blocks of O
+  constexpr int kChunks = D / 8;  // 16-byte chunks in a row
   extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem + L::q_off);
-  T* ks = reinterpret_cast<T*>(smem + L::k_off);
-  T* vs = reinterpret_cast<T*>(smem + L::v_off);
-  float* ss = reinterpret_cast<float*>(smem + L::s_off);
-  T* ps = reinterpret_cast<T*>(smem + L::p_off);
-  float* os = reinterpret_cast<float*>(smem + L::o_off);
-  float* row_m = reinterpret_cast<float*>(smem + L::m_off);
-  float* row_l = reinterpret_cast<float*>(smem + L::l_off);
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ks = reinterpret_cast<T*>(smem + L::q_bytes);
+  T* vs = reinterpret_cast<T*>(smem + L::q_bytes + NS * L::kv_bytes);
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -239,8 +378,175 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const unsigned char* mask = p.mask ? p.mask + b * p.mask_sb : nullptr;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int ntiles = (n + BK - 1) / BK;
 
-  load_rows<T, D, BQ, L::LD, true>(qs, q, p.q_sn, q0, n, p.scale);
+  static_assert((BK * kChunks) % L::kBlock == 0 && (BQ * kChunks) % L::kBlock == 0, "whole copy rounds");
+  // copies key tile `tile` into ring stage tile % NS; every call commits one
+  // copy group, empty past the last tile, so the group count stays regular
+  auto load_kv = [&](int tile) {
+    if (tile < ntiles) {
+      const int kv0 = tile * BK;
+      T* kd = ks + (tile % NS) * BK * LD;
+      T* vd = vs + (tile % NS) * BK * LD;
+#pragma unroll
+      for (int it = 0; it < BK * kChunks / L::kBlock; ++it) {
+        const int i = it * L::kBlock + tid;
+        const int r = i / kChunks, c = (i % kChunks) * 8;
+        const bool valid = kv0 + r < n;
+        const long long row = valid ? kv0 + r : 0;
+        cp_async_16(smem_addr(kd + r * LD + c), k + row * p.k_sn + c, valid);
+        cp_async_16(smem_addr(vd + r * LD + c), v + row * p.v_sn + c, valid);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // Q rides in the first copy group; each warp scales its own rows after
+  // the first barrier
+#pragma unroll
+  for (int it = 0; it < BQ * kChunks / L::kBlock; ++it) {
+    const int i = it * L::kBlock + tid;
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool valid = q0 + r < n;
+    const long long row = valid ? q0 + r : 0;
+    cp_async_16(smem_addr(qs + r * LD + c), q + row * p.q_sn + c, valid);
+  }
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) load_kv(t);
+
+  const int row0 = q0 + warp * 16;  // the warp's first query row
+  const bool active = row0 < n;
+  T* qw = qs + warp * 16 * LD;
+  uint32_t qf[L::kQInRegs ? NKS : 1][4];
+  float o[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {kMaskValue, kMaskValue};  // running max of rows g, g + 8
+  float l[2] = {0.f, 0.f};                // this thread's part of their sums
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int kv0 = tile * BK;
+    const int nvalid = min(BK, n - kv0);
+    const bool guard = mask != nullptr || nvalid < BK;
+    // validity of the tile's keys, once a tile: lane L holds keys kv0 + 2L
+    // and kv0 + 2L + 1; bit 4j + t of each word is then the key pair of
+    // thread t in column block j
+    uint32_t valid_even = 0xffffffffu, valid_odd = 0xffffffffu;
+    if (guard) {
+      const int key = kv0 + 2 * lane;
+      bool even = 2 * lane < BK && key < n;
+      bool odd = 2 * lane + 1 < BK && key + 1 < n;
+      if (mask != nullptr) {
+        even = even && mask[key] != 0;
+        odd = odd && mask[key + 1] != 0;
+      }
+      valid_even = __ballot_sync(0xffffffffu, even);
+      valid_odd = __ballot_sync(0xffffffffu, odd);
+    }
+    cp_async_wait<NS - 2>();
+    __syncthreads();  // the tile's K/V (and Q) landed; the stage of tile - 1 is free
+    load_kv(tile + NS - 1);
+    if (!active) continue;
+    if (tile == 0) {
+      // q * scale rounded to T, the TPU kernel's pre-scaling, in place
+#pragma unroll
+      for (int i = lane; i < 16 * kChunks; i += 32) {
+        uint4* chunk = reinterpret_cast<uint4*>(qw + (i / kChunks) * LD + (i % kChunks) * 8);
+        uint4 val = *chunk;
+        T* e = reinterpret_cast<T*>(&val);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) e[j] = from_float<T>(to_float<T>(e[j]) * p.scale);
+        *chunk = val;
+      }
+      __syncwarp();
+      if constexpr (L::kQInRegs) {
+#pragma unroll
+        for (int kk = 0; kk < NKS; ++kk)
+          ldmatrix_x4(qf[kk], smem_addr(qw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8));
+      }
+    }
+    const T* kt = ks + (tile % NS) * BK * LD;
+    const T* vt = vs + (tile % NS) * BK * LD;
+    if (guard) {
+      attend_tile<T, D, L, true>(qw, kt, vt, qf, o, m, l, nvalid, valid_even, valid_odd);
+    } else {
+      attend_tile<T, D, L, false>(qw, kt, vt, qf, o, m, l, nvalid, valid_even, valid_odd);
+    }
+  }
+  if (!active) return;
+
+  // out = acc / max(l, 1e-30), staged in the warp's own Q rows, then stored
+  // 16 bytes a thread
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+  __syncwarp();  // at D = 256 the warp read Q from these rows
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    *reinterpret_cast<uint32_t*>(qw + g * LD + j * 8 + 2 * t4) = pack2<T>(o[j][0] / l[0], o[j][1] / l[0]);
+    *reinterpret_cast<uint32_t*>(qw + (g + 8) * LD + j * 8 + 2 * t4) =
+        pack2<T>(o[j][2] / l[1], o[j][3] / l[1]);
+  }
+  __syncwarp();
+  T* out = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    if (row0 + r < n) {
+      *reinterpret_cast<uint4*>(out + (row0 + r) * p.o_sn + c) = *reinterpret_cast<const uint4*>(qw + r * LD + c);
+    }
+  }
+}
+
+// ===== fp32: shared memory, CUDA-core FMAs (no TF32) =======================
+
+template <int D>
+struct TileF32 {
+  static constexpr int BQ = 32;
+  static constexpr int BK = 32;
+  static constexpr int LD = D + 4;    // Q, K, V rows, padded by 16 bytes
+  static constexpr int LDS = BK + 4;  // S and P rows
+  static constexpr int LDO = D + 4;   // O rows
+  static constexpr size_t q_off = 0;
+  static constexpr size_t k_off = q_off + sizeof(float) * BQ * LD;
+  static constexpr size_t v_off = k_off + sizeof(float) * BK * LD;
+  static constexpr size_t s_off = v_off + sizeof(float) * BK * LD;
+  static constexpr size_t o_off = s_off + sizeof(float) * BQ * LDS;
+  static constexpr size_t m_off = o_off + sizeof(float) * BQ * LDO;
+  static constexpr size_t l_off = m_off + sizeof(float) * BQ;
+  static constexpr size_t bytes = l_off + sizeof(float) * BQ;
+  static_assert(k_off % 16 == 0 && v_off % 16 == 0 && s_off % 16 == 0 && o_off % 16 == 0, "alignment");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel_fp32(const Params p) {
+  using L = TileF32<D>;
+  constexpr int BQ = L::BQ, BK = L::BK;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + L::q_off);
+  float* ks = reinterpret_cast<float*>(smem + L::k_off);
+  float* vs = reinterpret_cast<float*>(smem + L::v_off);
+  float* ss = reinterpret_cast<float*>(smem + L::s_off);  // S, then P in place
+  float* os = reinterpret_cast<float*>(smem + L::o_off);
+  float* row_m = reinterpret_cast<float*>(smem + L::m_off);
+  float* row_l = reinterpret_cast<float*>(smem + L::l_off);
+
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int n = p.N;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const unsigned char* mask = p.mask ? p.mask + b * p.mask_sb : nullptr;
+
+  load_rows<float, D, BQ, L::LD, true>(qs, q, p.q_sn, q0, n, p.scale);
   for (int i = threadIdx.x; i < BQ * L::LDO; i += kThreads) os[i] = 0.0f;
   for (int i = threadIdx.x; i < BQ; i += kThreads) {
     row_m[i] = kMaskValue;
@@ -250,40 +556,33 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   for (int kv0 = 0; kv0 < n; kv0 += BK) {
-    load_rows<T, D, BK, L::LD, false>(ks, k, p.k_sn, kv0, n, 0.0f);
-    load_rows<T, D, BK, L::LD, false>(vs, v, p.v_sn, kv0, n, 0.0f);
+    load_rows<float, D, BK, L::LD, false>(ks, k, p.k_sn, kv0, n, 0.0f);
+    load_rows<float, D, BK, L::LD, false>(vs, v, p.v_sn, kv0, n, 0.0f);
     __syncthreads();
 
-    if constexpr (sizeof(T) == 4) {
-      tile_scores_fp32<D>(reinterpret_cast<const float*>(qs), reinterpret_cast<const float*>(ks), ss);
-    } else {
-      tile_scores<T, D>(qs, ks, ss);
+    for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
+      const int r = i / BK, c = i % BK;
+      float acc = 0.0f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) acc = fmaf(qs[r * L::LD + d], ks[c * L::LD + d], acc);
+      ss[r * L::LDS + c] = acc;
     }
     __syncthreads();
 
-    // Online softmax: each warp owns rows warp, warp + 4, ...
+    // online softmax: each warp owns rows warp, warp + 4, ...; one key a lane
     for (int r = warp; r < BQ; r += kWarps) {
-      float s[BK / 32];
-      float mx = kMaskValue;
-#pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
-        const int key = kv0 + lane + 32 * j;
-        const bool valid = key < n && (mask == nullptr || mask[key] != 0);
-        s[j] = valid ? ss[r * L::LDS + lane + 32 * j] : kMaskValue;
-        mx = fmaxf(mx, s[j]);
-      }
+      const int key = kv0 + lane;
+      const bool valid = key < n && (mask == nullptr || mask[key] != 0);
+      const float s = valid ? ss[r * L::LDS + lane] : kMaskValue;
+      float mx = s;
 #pragma unroll
       for (int off = 16; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_old = row_m[r];
       const float m_new = fmaxf(m_old, mx);
       const float alpha = expf(m_old - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
-        const float pj = expf(s[j] - m_new);
-        ps[r * L::LDP + lane + 32 * j] = from_float<T>(pj);
-        sum += pj;
-      }
+      const float pj = expf(s - m_new);
+      ss[r * L::LDS + lane] = pj;
+      float sum = pj;
 #pragma unroll
       for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
       for (int d = lane; d < D; d += 32) os[r * L::LDO + d] *= alpha;
@@ -295,31 +594,61 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
     }
     __syncthreads();
 
-    if constexpr (sizeof(T) == 4) {
-      tile_accumulate_fp32<D>(reinterpret_cast<const float*>(ps), reinterpret_cast<const float*>(vs), os);
-    } else {
-      tile_accumulate<T, D>(ps, vs, os);
+    for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
+      const int r = i / D, d = i % D;
+      float acc = os[r * L::LDO + d];
+#pragma unroll 8
+      for (int c = 0; c < BK; ++c) acc = fmaf(ss[r * L::LDS + c], vs[c * L::LD + d], acc);
+      os[r * L::LDO + d] = acc;
     }
     __syncthreads();
   }
 
-  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
   for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
-    if (q0 + r < n) {
-      o[(q0 + r) * p.o_sn + d] = from_float<T>(os[r * L::LDO + d] / fmaxf(row_l[r], 1e-30f));
-    }
+    if (q0 + r < n) o[(q0 + r) * p.o_sn + d] = os[r * L::LDO + d] / fmaxf(row_l[r], 1e-30f);
   }
 }
 
+// ===== launch ==============================================================
+
+// The 16-bit kernel's block shape for each head dim. Up to D = 64: 8 warps
+// (128 query rows share each K/V tile), a 3-stage ring and at most 128
+// registers, so 2 blocks fit an SM; above, 4 warps and 2 stages.
+template <int D>
+using Config16 = std::conditional_t<(D <= 64), Tile16<D, 8, 3, 2, (D < 64)>, Tile16<D, 4, 2, 1, (D < 256)>>;
+
+template <typename T, int D>
+struct Kernel {
+  static constexpr int BQ = Config16<D>::BQ;
+  static constexpr int bytes = Config16<D>::bytes;
+  static constexpr int threads = Config16<D>::kBlock;
+};
+template <int D>
+struct Kernel<float, D> {
+  static constexpr int BQ = TileF32<D>::BQ;
+  static constexpr int bytes = static_cast<int>(TileF32<D>::bytes);
+  static constexpr int threads = kThreads;
+};
+
 template <typename T, int D>
 int launch(const Params& p, int batch, cudaStream_t stream) {
-  using L = Layout<T, D>;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::bytes));
+  using K = Kernel<T, D>;
+  if (p.N == 0 || batch == 0 || p.H == 0) return 0;
+  const dim3 grid((p.N + K::BQ - 1) / K::BQ, p.H, batch);
+  cudaError_t attr = cudaSuccess;
+  if constexpr (std::is_same<T, float>::value) {
+    if (K::bytes > 48 * 1024)
+      attr = cudaFuncSetAttribute(flash_fwd_kernel_fp32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, K::bytes);
+    if (attr == cudaSuccess) flash_fwd_kernel_fp32<D><<<grid, kThreads, K::bytes, stream>>>(p);
+  } else {
+    if (K::bytes > 48 * 1024)
+      attr = cudaFuncSetAttribute(flash_fwd_kernel<T, D, Config16<D>>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  K::bytes);
+    if (attr == cudaSuccess) flash_fwd_kernel<T, D, Config16<D>><<<grid, K::threads, K::bytes, stream>>>(p);
+  }
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((p.N + L::BQ - 1) / L::BQ, p.H, batch);
-  flash_fwd_kernel<T, D><<<grid, kThreads, L::bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -337,10 +666,10 @@ int dispatch_dim(int head_dim, const Params& p, int batch, cudaStream_t stream) 
 template <typename T>
 long long smem_for_dim(int head_dim) {
   switch (head_dim) {
-    case 32: return Layout<T, 32>::bytes;
-    case 64: return Layout<T, 64>::bytes;
-    case 128: return Layout<T, 128>::bytes;
-    case 256: return Layout<T, 256>::bytes;
+    case 32: return Kernel<T, 32>::bytes;
+    case 64: return Kernel<T, 64>::bytes;
+    case 128: return Kernel<T, 128>::bytes;
+    case 256: return Kernel<T, 256>::bytes;
     default: return -1;
   }
 }

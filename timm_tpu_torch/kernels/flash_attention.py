@@ -2,10 +2,38 @@
 Hopper, and its plain PyTorch version.
 
 Port of ``timm_tpu/kernels/flash_attention.py``. The kernel
-(``csrc/flash_attention.cu``) replaces the Pallas ``_fwd_kernel`` and keeps
-its rounding points; its header says what bounds it on an H100. Unlike the
+(``csrc/flash_attention.cu``) replaces the Pallas ``_fwd_kernel``. Unlike the
 JAX package, where the Pallas kernel is opt-in, the kernel *is* the attention
 of the port whenever the tensors are on a CUDA device.
+
+For bf16 and fp16 it is a register-resident design: each warp owns 16 query
+rows, both products run on ``mma.sync`` with S, P and the fp32 accumulator
+in registers, and K/V tiles arrive through a ``cp.async`` ring (3 stages at
+D <= 64, 2 above) with one barrier a tile. fp32 inputs take a separate
+shared-memory kernel with CUDA-core FMAs (no TF32), chosen by dtype. The
+least time on an H100 is device memory's: at ViT-B/16's N = 197, D = 64 the
+function does some 98 operations a byte, under the tensor cores' ~295; what
+holds the kernel above that is latency (2 blocks of 8 warps an SM) more than
+any one unit. e^x is computed as 2^(x log2 e) on the special-function unit.
+
+Rounding. It keeps the TPU kernel's rounding points: q * scale rounded to
+the input type before the first product, fp32 scores, -1e30 for masked keys
+and the ragged tail beyond N, p rounded to v's type, and acc / max(l, 1e-30)
+rounded to q's type. Where p is rounded differs: the TPU kernel takes one key
+block of min(512, max(128, next_pow2(N))) keys, so for N <= 512 it rounds p
+against the row's final max; this kernel walks keys in tiles of 64 (32 at
+D = 256) and rounds p against the running max, rescaling the fp32 sum
+afterwards, because a warp holds a tile's scores in registers and the whole
+key range would leave none for the accumulator. Both stay within the 2e-2
+parity tolerance. A query row whose keys are all masked comes out as the sum
+of v over its N keys divided by the key slots the kernel computes:
+round_up(N, 8) for bf16 and fp16 (the kernel's 8-key column blocks) and
+round_up(N, 32) for fp32 (its 32-key tiles). The TPU kernel divides by
+round_up(N, block_k), so the two agree for bf16 and fp16 only at N = 121-128,
+249-256, 505-512 and, above 512, the N within 8 below a multiple of 512; for
+fp32 at N = 97-128, 225-256, 481-512 and, above 512, the N within 32 below a
+multiple of 512. The plain version gives the mean of v. The ViT token pad
+never produces such a row: the class token is always a valid key.
 
 The input contract is the JAX one: an optional bool key-padding mask of shape
 (B, N) or (B, 1, 1, N), True = valid key; any other mask raises, because the
