@@ -14,7 +14,13 @@ InferenceEngine, trains ViT-B/16 through the port's ClassificationTask
 gradients checked against the CPU in fp32 and a profiler breakdown of the
 train step, and trains it again from a folder of seeded PNGs through the
 port's input path (threaded loader, CUDA-stream prefetcher, mixup, cutmix
-and erasing sampled on the host, the augment-epilogue kernel). The flash
+and erasing sampled on the host, the augment-epilogue kernel). Last, phase
+``drivers`` runs the port's command-line drivers through their
+``main(argv)``: ``train`` from a folder of PNGs uninterrupted (A), stopped
+by an injected SIGTERM after update 12 (B) and resumed with ``--resume
+auto`` (C), C's checkpoint held to A's; then ``validate`` and
+``inference`` on A's EMA weights, held to A's last evaluation, and one
+``python -m timm_tpu_torch.validate`` subprocess. The flash
 and augment kernels' times are device times from CUDA-graph replays
 (``kernel_ms``) beside the time of eager calls, the wrapper's host time
 included (``call_ms``); each kernel's time is set against its bound
@@ -882,6 +888,20 @@ def _host_ms_per_image(root, data_config, n: int = 64):
     return {k: v * 1e3 / n for k, v in ms.items()}
 
 
+def _in_epoch_rate(steps, per_epoch):
+    """Images a second over the in-epoch steps from update 3 on, and the
+    medians of their two parts: ``steps`` holds (wait_ms, step_ms) of each
+    update, the host time before its train_step (the loader's wait, loop
+    work) and the train_step itself, which ends in the guard's read-back.
+    A step that fetches an epoch's first batch (pipeline restart, and in
+    the train driver the epoch's evaluation and checkpoint) is left out;
+    input_train and drivers take their in-epoch rates through this."""
+    kept = [steps[i] for i in range(TRAIN_WARMUP_STEPS, len(steps)) if i % per_epoch]
+    return {'img_per_s_in_epoch': TRAIN_BATCH * len(kept) / (sum(w + s for w, s in kept) / 1e3),
+            'in_epoch_wait_ms_median': float(np.median([w for w, _ in kept])),
+            'in_epoch_train_step_ms_median': float(np.median([s for _, s in kept]))}
+
+
 def phase_input_train(train_step_ms: float):
     """The input path of training: ClassificationTask trains ViT-B/16 (bf16
     compute, fp32 params, SoftTargetCrossEntropy, the task's normalize off
@@ -1006,6 +1026,7 @@ def phase_input_train(train_step_ms: float):
            # steps that do not open an epoch (no pipeline restart)
            'step_wall_ms_median_within_epoch': float(np.median(
                [ms for i, ms in enumerate(step_wall_ms) if i % len(loader)])),
+           **_in_epoch_rate([(w, s - w) for w, s in zip(wait_ms, step_wall_ms)], len(loader)),
            'loader_only_img_per_s': loader_img_per_s,
            'loader_only_wait_ms_per_batch': loader_wait_ms,
            'host_ms_per_image_one_thread': host_ms,
@@ -1029,6 +1050,267 @@ def phase_input_train(train_step_ms: float):
     check(stage_err <= AUGMENT_TOL, f'input_train: card vs CPU stage max abs err {stage_err}')
     del task, model, opt, loader
     torch.cuda.empty_cache()
+    return launches
+
+
+# phase drivers: `python -m timm_tpu_torch.train` run A (uninterrupted), run B
+# (SIGTERM after update DRIVER_SIGTERM_AT) and run C (`--resume auto` on B's
+# directory), then validate and inference on A's checkpoint
+DRIVER_FLAGS = [
+    '--model', 'vit_base_patch16_224', '--amp', '-b', '64', '--epochs', '2',
+    '--opt', 'adamw', '--lr', '3e-4', '--weight-decay', '0.05', '--clip-grad', '1.0',
+    '--sched', 'cosine', '--warmup-epochs', '1', '--drop-path', '0.1', '--smoothing', '0.1',
+    '--mixup', '0.8', '--cutmix', '1.0', '--reprob', '0.25', '--remode', 'const',
+    '--color-jitter', '0.4', '--mean', '0.5', '0.5', '0.5', '--std', '0.5', '0.5', '0.5',
+    '--device-augment', '--device-prefetch', '2', '--workers', '6',
+    '--model-ema', '--model-ema-decay', '0.9998', '--checkpoint-hist', '2', '--seed', '0']
+DRIVER_SIGTERM_AT = 12
+DRIVER_VALIDATION_PER_CLASS = 64   # 192 validation images
+DRIVER_EVAL_REL_TOL = 1e-4         # validate's loss vs the train run's EMA evaluation
+
+
+def _checkpoint_groups(path: str):
+    """{group: {key: array}} of a checkpoint's weights, EMA and optimizer."""
+    groups = {'state_dict': {}, 'state_dict_ema': {}, 'optimizer': {}}
+    with np.load(path, allow_pickle=False) as data:
+        for k in data.files:
+            g = k.split('.', 1)[0]
+            if g in groups:
+                groups[g][k] = data[k]
+    return groups
+
+
+def _max_diff(a, b):
+    """{group: (tensors that differ, max abs difference)}."""
+    out = {}
+    for g in a:
+        check(set(a[g]) == set(b[g]), f'drivers: the checkpoints hold different {g} keys')
+        differ = [k for k in a[g] if not np.array_equal(a[g][k], b[g][k])]
+        out[g] = (len(differ), max((float(np.abs(a[g][k].astype(np.float64) - b[g][k]).max())
+                                    for k in differ), default=0.0))
+    return out
+
+
+def _trim_run_dir(path: str):
+    """Keep last.npz and what resume needs; drop the 1.4 GB copies."""
+    for name in os.listdir(path):
+        if name.startswith(('checkpoint-', 'model_best')):
+            os.remove(os.path.join(path, name))
+
+
+def phase_drivers():
+    """The port's drivers through their main(argv), at full width:
+    train runs A, B (SIGTERM after update 12) and C (--resume auto on B),
+    C's last.npz held to A's bit for bit (or, if the card is not
+    deterministic, within the difference of A and a second A); validate on
+    A's EMA weights held to A's final EMA evaluation; inference's top-1
+    held to validate's; one `python -m timm_tpu_torch.validate` subprocess.
+    Launch counts are read around each run."""
+    import contextlib
+    import csv
+    import logging
+    import shutil
+    import tempfile
+
+    import torch
+    from timm_tpu_torch import inference, train, validate
+    from timm_tpu_torch.kernels import augment_epilogue, flash_attention, fused_adamw
+    from timm_tpu_torch.task.task import TrainingTask
+    from timm_tpu_torch.utils import CheckpointSaver
+
+    kernels = (flash_attention, fused_adamw, augment_epilogue)
+    # (start, end) of each update, and of each evaluation and checkpoint
+    # save of the train driver (time.perf_counter)
+    spans = {'update': [], 'epoch_end': []}
+    train_step = TrainingTask.train_step
+    train_validate = train.validate
+    save_checkpoint = CheckpointSaver.save_checkpoint
+
+    def timed(fn, kind):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spans[kind].append((t, time.perf_counter()))
+        return wrapper
+
+    def run(fn, argv):
+        for k in kernels:
+            k.launches = 0
+        for v in spans.values():
+            del v[:]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            result = fn(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k.__name__: k.launches for k in kernels}
+        torch.cuda.empty_cache()
+        return result, wall, counts, list(spans['update'])
+
+    def train_rates(steps, per_epoch):
+        """Train images a second from update 3 on, over all the time from
+        its start to the end of the last update, as input_train's img_per_s
+        counts them; the same without the epoch ends' evaluation and
+        checkpoint saves; and the in-epoch rate taken as input_train's."""
+        t0, t1 = steps[TRAIN_WARMUP_STEPS][0], steps[-1][1]
+        images = 64 * (len(steps) - TRAIN_WARMUP_STEPS)
+        side = sum(min(e, t1) - max(s, t0) for s, e in spans['epoch_end'] if e > t0 and s < t1)
+        # update i's host time before its train_step, and the step itself
+        parts = [((s - steps[i - 1][1]) * 1e3 if i else 0.0, (e - s) * 1e3)
+                 for i, (s, e) in enumerate(steps)]
+        return {'img_per_s': images / (t1 - t0),
+                'img_per_s_without_eval_and_save': images / (t1 - t0 - side),
+                'eval_and_save_s': side, **_in_epoch_rate(parts, per_epoch)}
+
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_drivers_')
+    TrainingTask.train_step = timed(train_step, 'update')
+    train.validate = timed(train_validate, 'epoch_end')
+    CheckpointSaver.save_checkpoint = timed(save_checkpoint, 'epoch_end')
+    row = {'phase': 'drivers', 'model': 'vit_base_patch16_224', 'dtype': 'bfloat16',
+           'flags': ' '.join(DRIVER_FLAGS), 'sigterm_at': DRIVER_SIGTERM_AT}
+    try:
+        data = os.path.join(tmp, 'data')
+        t0 = time.perf_counter()
+        n_train = _write_image_folder(os.path.join(data, 'train'), INPUT_IMAGES_PER_CLASS)
+        n_val = _write_image_folder(os.path.join(data, 'validation'), DRIVER_VALIDATION_PER_CLASS,
+                                    seed=1)
+        write_s = time.perf_counter() - t0
+        out = os.path.join(tmp, 'out')
+        per_epoch = n_train // 64
+        updates = 2 * per_epoch
+        depth = 12
+        evals = 2 * 2 * -(-n_val // 64)  # per epoch: the weights and the EMA
+
+        def train_argv(experiment, *extra):
+            return DRIVER_FLAGS + ['--data-dir', data, '--output', out,
+                                   '--experiment', experiment, *extra]
+
+        row.update(train_images=n_train, validation_images=n_val, updates_per_run=updates,
+                   write_images_s=write_s, wall_s={}, launches={})
+        rc_a, wall_a, launches_a, starts_a = run(train.main, train_argv('a'))
+        row['wall_s']['a'], row['launches']['a'] = wall_a, launches_a
+        row['train_from_update_3'] = {'a': train_rates(starts_a, per_epoch)}
+        check(rc_a == 0, f'drivers: run A exited {rc_a}')
+        check(launches_a == {'flash_attention': depth * (updates + evals),
+                             'fused_adamw': updates, 'augment_epilogue': updates},
+              f'drivers: run A launches {launches_a}')
+        _trim_run_dir(os.path.join(out, 'a'))
+        rc_b, wall_b, launches_b, starts_b = run(
+            train.main, train_argv('b', '--fault-inject', f'sigterm@{DRIVER_SIGTERM_AT}'))
+        row['wall_s']['b'], row['launches']['b'] = wall_b, launches_b
+        row['train_from_update_3']['b'] = train_rates(starts_b, per_epoch)
+        check(rc_b == 0, f'drivers: run B exited {rc_b}')
+        recovery = sorted(n for n in os.listdir(os.path.join(out, 'b'))
+                          if n.startswith('recovery-1-') and n.endswith('.npz'))
+        check(len(recovery) == 1, f'drivers: run B left {recovery}, want one recovery file of epoch 1')
+        check(len(starts_b) == DRIVER_SIGTERM_AT + 1, f'drivers: run B took {len(starts_b)} updates')
+        _trim_run_dir(os.path.join(out, 'b'))
+        rc_c, wall_c, launches_c, starts_c = run(train.main, train_argv('b', '--resume', 'auto'))
+        row['wall_s']['c'], row['launches']['c'] = wall_c, launches_c
+        check(rc_c == 0, f'drivers: run C exited {rc_c}')
+        check(len(starts_c) == updates - DRIVER_SIGTERM_AT - 1,
+              f'drivers: run C took {len(starts_c)} updates')
+        check(not [n for n in os.listdir(os.path.join(out, 'b')) if n.startswith('recovery-')],
+              'drivers: the end of epoch 1 did not prune the recovery file')
+
+        ckpt_a = _checkpoint_groups(os.path.join(out, 'a', 'last.npz'))
+        ckpt_c = _checkpoint_groups(os.path.join(out, 'b', 'last.npz'))
+        c_vs_a = _max_diff(ckpt_c, ckpt_a)
+        del ckpt_c
+        bit_identical = all(n == 0 for n, _ in c_vs_a.values())
+        row['resumed_vs_uninterrupted'] = {g: {'tensors_differ': n, 'max_abs_diff': d}
+                                           for g, (n, d) in c_vs_a.items()}
+        row['bit_identical'] = bit_identical
+        a_vs_a2 = None
+        if not bit_identical:
+            # the card is not deterministic: hold C to A within what a second
+            # uninterrupted run differs by
+            _, wall_a2, _, _ = run(train.main, train_argv('a2'))
+            a_vs_a2 = _max_diff(_checkpoint_groups(os.path.join(out, 'a2', 'last.npz')), ckpt_a)
+            shutil.rmtree(os.path.join(out, 'a2'))
+            row['wall_s']['a2'] = wall_a2
+            row['uninterrupted_vs_uninterrupted'] = {
+                g: {'tensors_differ': n, 'max_abs_diff': d} for g, (n, d) in a_vs_a2.items()}
+            for g, (_, d) in c_vs_a.items():
+                check(d <= a_vs_a2[g][1],
+                      f'drivers: resumed {g} differs from run A by {d}, two uninterrupted runs '
+                      f'by {a_vs_a2[g][1]}')
+        del ckpt_a
+
+        with open(os.path.join(out, 'a', 'summary.csv')) as f:
+            rows = list(csv.DictReader(f))
+        check(len(rows) == 2, f'drivers: run A wrote {len(rows)} summary rows')
+        ema_loss, ema_top1 = float(rows[-1]['eval_loss_ema']), float(rows[-1]['eval_top1_ema'])
+        row['run_a_final_ema_eval'] = {'loss': ema_loss, 'top1': ema_top1}
+
+        eval_argv = ['--model', 'vit_base_patch16_224', '--checkpoint',
+                     os.path.join(out, 'a', 'last.npz'), '--use-ema', '--amp', '-b', '64',
+                     '--workers', '6', '--data-dir', data]
+        predictions = []
+        val, wall_v, launches_v, _ = run(
+            lambda argv: validate.validate(validate.parser.parse_args(argv), predictions), eval_argv)
+        row['wall_s']['validate'], row['launches']['validate'] = wall_v, launches_v
+        row['validate'] = {'loss': val['loss'], 'top1': val['top1'], 'top5': val['top5']}
+        row['validate_img_per_s'] = val['img_per_s']
+        check(launches_v['flash_attention'] == depth * -(-n_val // 64),
+              f'drivers: validate launches {launches_v}')
+        check(abs(val['loss'] - ema_loss) <= DRIVER_EVAL_REL_TOL * abs(ema_loss),
+              f'drivers: validate loss {val["loss"]} vs run A EMA eval {ema_loss}')
+        check(abs(val['top1'] - ema_top1) <= 100.0 / n_val + 1e-9,
+              f'drivers: validate top-1 {val["top1"]} vs run A EMA eval {ema_top1}')
+
+        inference_s = []
+
+        class Rate(logging.Handler):
+            def emit(self, record):
+                m = re.search(r'Inference complete: (\d+) images in ([\d.]+)s', record.getMessage())
+                if m:
+                    inference_s.append(float(m.group(2)))
+        handler = Rate()
+        logging.getLogger('inference').addHandler(handler)
+        try:
+            rc_i, wall_i, launches_i, _ = run(
+                inference.main, eval_argv + ['--topk', '5', '--output-dir', os.path.join(tmp, 'inf')])
+        finally:
+            logging.getLogger('inference').removeHandler(handler)
+        row['wall_s']['inference'], row['launches']['inference'] = wall_i, launches_i
+        row['inference_img_per_s'] = n_val / inference_s[0] if inference_s else 'not measured'
+        check(rc_i == 0, f'drivers: inference exited {rc_i}')
+        with open(os.path.join(tmp, 'inf', 'vit_base_patch16_224-results.csv')) as f:
+            inf_rows = list(csv.DictReader(f))
+        check(len(inf_rows) == n_val, f'drivers: inference wrote {len(inf_rows)} rows')
+        agree = sum(int(r['label_0']) == p[0] for r, p in zip(inf_rows, predictions))
+        row['inference_top1_agrees'] = agree
+        check(agree == n_val == len(predictions),
+              f'drivers: inference top-1 agrees with validate on {agree} of {n_val} images')
+        check(launches_i['flash_attention'] == depth * -(-n_val // 64),
+              f'drivers: inference launches {launches_i}')
+
+        # the module entry point, as a user runs it
+        results_json = os.path.join(tmp, 'validate.json')
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'timm_tpu_torch.validate', *eval_argv,
+             '--results-file', results_json, '--results-format', 'json'],
+            capture_output=True, text=True, cwd=HERE, timeout=600)
+        wall_sub = time.perf_counter() - t0
+        check(proc.returncode == 0, f'drivers: python -m timm_tpu_torch.validate exited '
+                                    f'{proc.returncode}: {proc.stderr[-2000:]}')
+        with open(results_json) as f:
+            sub = json.load(f)[0]
+        row['wall_s']['validate_subprocess'] = wall_sub
+        row['validate_subprocess'] = {'loss': sub['loss'], 'top1': sub['top1']}
+        check(sub['top1'] == val['top1'] and abs(sub['loss'] - val['loss']) <= 1e-6 * abs(val['loss']),
+              f'drivers: the subprocess validate gave {sub}, in-process {val}')
+    finally:
+        TrainingTask.train_step = train_step
+        train.validate = train_validate
+        CheckpointSaver.save_checkpoint = save_checkpoint
+        shutil.rmtree(tmp, ignore_errors=True)
+        emit(row)  # what was measured, also when a check failed
+    launches = {k.__name__: sum(r[k.__name__] for r in row['launches'].values()) for k in kernels}
     return launches
 
 
@@ -1163,6 +1445,7 @@ def main() -> int:
         attn_bwd_ms, attn_bwd_library_ms = phase_train_breakdown(task, batch)
         del task, batch
         input_launches = phase_input_train(train_step_ms)
+        driver_launches = phase_drivers()
     except Exception:
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -1174,9 +1457,10 @@ def main() -> int:
         'source': 'timm_tpu_torch/kernels/csrc/flash_attention.cu',
         'replaces': 'timm_tpu/kernels/flash_attention.py:79',
         'launches': (serve_launches + train_launches['flash_attention']
-                     + input_launches['flash_attention']),
+                     + input_launches['flash_attention'] + driver_launches['flash_attention']),
         'launches_by_path': {'serve': serve_launches, 'train': train_launches['flash_attention'],
-                             'input_train': input_launches['flash_attention']},
+                             'input_train': input_launches['flash_attention'],
+                             'drivers': driver_launches['flash_attention']},
         # against the plain version; the sharp case's error over its fp64 bound
         'max_abs_err': max(r['max_abs_err'] for r in rows if r['reference'] == 'plain'),
         'sharp_error_over_bound': max(r['error_over_bound'] for r in rows
@@ -1193,9 +1477,11 @@ def main() -> int:
         'name': 'fused_adamw', 'route': 'cuda',
         'source': 'timm_tpu_torch/kernels/csrc/fused_adamw.cu',
         'replaces': 'timm_tpu/kernels/fused_adamw.py:54',
-        'launches': train_launches['fused_adamw'] + input_launches['fused_adamw'],
+        'launches': (train_launches['fused_adamw'] + input_launches['fused_adamw']
+                     + driver_launches['fused_adamw']),
         'launches_by_path': {'train': train_launches['fused_adamw'],
-                             'input_train': input_launches['fused_adamw']},
+                             'input_train': input_launches['fused_adamw'],
+                             'drivers': driver_launches['fused_adamw']},
         'max_abs_err': max(max(r['max_abs_err'][k] for k in ('p', 'v', 'ema'))
                            for r in adamw_rows),
         'ms': adamw_row['kernel_ms'], 'plain_ms': adamw_row['plain_ms'],
@@ -1208,8 +1494,9 @@ def main() -> int:
         'name': 'augment_epilogue', 'route': 'cuda',
         'source': 'timm_tpu_torch/kernels/csrc/augment_epilogue.cu',
         'replaces': 'timm_tpu/kernels/augment_epilogue.py:55',
-        'launches': input_launches['augment_epilogue'],
-        'launches_by_path': {'input_train': input_launches['augment_epilogue']},
+        'launches': input_launches['augment_epilogue'] + driver_launches['augment_epilogue'],
+        'launches_by_path': {'input_train': input_launches['augment_epilogue'],
+                             'drivers': driver_launches['augment_epilogue']},
         # fp32 cases; the bf16 cases are held to one bf16 ulp ('within_tol')
         'max_abs_err': max(r['max_abs_err'] for r in augment_rows if r['out_dtype'] == 'float32'),
         'bf16_within_one_ulp': all(r['within_tol'] for r in augment_rows

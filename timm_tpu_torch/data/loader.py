@@ -4,8 +4,14 @@
   * ``ThreadedLoader``: worker threads decode and transform samples (PIL
     releases the GIL in its codecs), a bounded queue pipelines them, and a
     collator thread stacks numpy batches; the index order, the drop_last
-    rule and the poison-sample budget are the JAX package's. Worker threads
-    never touch CUDA.
+    rule and the poison-sample budget are the JAX package's. Unlike the JAX
+    loader, which collates training batches in arrival order and lets its
+    random transforms draw from the global ``random`` in whichever thread
+    runs first, each sample's transforms draw from a stream keyed by seed,
+    process, epoch and position (data/sample_rng.py) and batches collate in
+    epoch order: an epoch is the same whatever the worker count and thread
+    timing, so a resumed run sees the images an uninterrupted one saw.
+    Worker threads never touch CUDA.
   * ``DevicePrefetcher``: pins each host batch and copies it to the card on
     a side stream, keeping up to ``size`` batches in flight, so the copy of
     batch k+1 overlaps the step on batch k.
@@ -19,6 +25,7 @@ from __future__ import annotations
 import collections
 import math
 import queue
+import random
 import threading
 from typing import Optional
 
@@ -31,6 +38,7 @@ from .constants import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
 from .device_augment import DeviceAugmentStage
 from .mixup import FastCollateMixup
 from .random_erasing import RandomErasing
+from .sample_rng import set_sample_rng
 
 __all__ = ['create_loader', 'DevicePrefetcher', 'ThreadedLoader']
 
@@ -220,38 +228,40 @@ class ThreadedLoader:
 
         skip_budget = SkipBudget()
 
-        def worker(worker_indices):
-            for idx in worker_indices:
+        def load(pos, idx):
+            set_sample_rng(random.Random(
+                f'{self.seed}/{self.process_index}/{self.epoch}/{pos}'))
+            return self.dataset[idx]
+
+        def worker(worker_jobs):
+            for pos, idx in worker_jobs:
                 if stop.is_set():
                     return
+                idx = int(idx)
                 try:
                     # transient I/O faults (OSError) ride through jittered
                     # exponential backoff; anything still failing is poison
-                    sample = retry_io(lambda: self.dataset[int(idx)], retries=3, base_delay=0.05,
-                                      desc=f'sample {int(idx)}')
+                    sample = retry_io(lambda: load(pos, idx), retries=3, base_delay=0.05,
+                                      desc=f'sample {idx}')
                 except Exception as e:
                     try:
                         skip_budget.record(e, f'sample index {int(idx)}')
                         sample = _SKIPPED
                     except TooManyBadSamples as fatal:
                         sample = fatal  # budget exhausted: fail the epoch loudly
-                if not _put(sample_q, (int(idx), sample)):
+                if not _put(sample_q, (pos, sample)):
                     return
 
         used = indices[:num_batches * self.batch_size] if self.drop_last else indices
-        threads = [threading.Thread(target=worker, args=(used[w::self.num_workers],), daemon=True)
+        jobs = list(enumerate(used))
+        threads = [threading.Thread(target=worker, args=(jobs[w::self.num_workers],), daemon=True)
                    for w in range(self.num_workers)]
 
-        # training batches collate in arrival order (indices are already a
-        # fresh shuffle, and this keeps sample_q backpressure intact); eval
-        # restores deterministic index order so results are reproducible.
-        # repeat-aug emits DUPLICATE indices, which the ordered path's
-        # pending-by-index bookkeeping cannot represent — always unordered.
-        ordered = not self.shuffle and not self.num_aug_repeats
-
         def collator():
+            # samples collate in epoch order, by position (repeated
+            # augmentation repeats indices, never positions)
             pending = {}
-            order = list(used)
+            n_used = len(used)
             pos = 0
             consumed = 0
             batch_imgs, batch_targets = [], []
@@ -268,31 +278,23 @@ class ThreadedLoader:
                 return True
 
             try:
-                while consumed < len(order) and not stop.is_set():
+                while consumed < n_used and not stop.is_set():
                     try:
-                        idx, sample = sample_q.get(timeout=0.1)
+                        at, sample = sample_q.get(timeout=0.1)
                     except queue.Empty:
                         continue
                     consumed += 1
                     if isinstance(sample, Exception):
                         raise sample
-                    if ordered:
-                        pending[idx] = sample
-                        while pos < len(order) and int(order[pos]) in pending:
-                            s = pending.pop(int(order[pos]))
-                            pos += 1
-                            if s is not _SKIPPED:
-                                img, target = s
-                                batch_imgs.append(img)
-                                batch_targets.append(target)
-                            if not emit(force_last=pos == len(order)):
-                                return
-                    else:
-                        if sample is not _SKIPPED:
-                            img, target = sample
+                    pending[at] = sample
+                    while pos in pending:
+                        s = pending.pop(pos)
+                        pos += 1
+                        if s is not _SKIPPED:
+                            img, target = s
                             batch_imgs.append(img)
                             batch_targets.append(target)
-                        if not emit(force_last=consumed == len(order)):
+                        if not emit(force_last=pos == n_used):
                             return
             except Exception as e:
                 _put(batch_q, e)

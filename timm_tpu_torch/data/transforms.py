@@ -5,16 +5,20 @@ Transforms compose PIL→PIL; the terminal ToNumpy yields float32 HWC in [0,1],
 or raw uint8 for the device augment path. Normalization happens on the
 device, so the host pipeline stays uint8/float32-cheap. This module and
 data/dataset.py are the only ones of the port that import PIL.
+
+Random transforms draw from ``sample_rng()`` (data/sample_rng.py): the
+loader's per-sample stream, else Python's global ``random``.
 """
 from __future__ import annotations
 
 import math
-import random
 import warnings
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 from PIL import Image
+
+from .sample_rng import sample_rng
 
 __all__ = [
     'Compose', 'ToNumpy', 'RandomResizedCropAndInterpolation', 'CenterCropOrPad',
@@ -76,7 +80,7 @@ class RandomHorizontalFlip:
         self.p = p
 
     def __call__(self, img):
-        if random.random() < self.p:
+        if sample_rng().random() < self.p:
             return img.transpose(Image.FLIP_LEFT_RIGHT)
         return img
 
@@ -86,7 +90,7 @@ class RandomVerticalFlip:
         self.p = p
 
     def __call__(self, img):
-        if random.random() < self.p:
+        if sample_rng().random() < self.p:
             return img.transpose(Image.FLIP_TOP_BOTTOM)
         return img
 
@@ -168,7 +172,7 @@ class RandomApply:
         self.p = p
 
     def __call__(self, img):
-        if random.random() < self.p:
+        if sample_rng().random() < self.p:
             return self.transform(img)
         return img
 
@@ -178,7 +182,7 @@ class RandomGrayscale:
         self.p = p
 
     def __call__(self, img):
-        if random.random() < self.p:
+        if sample_rng().random() < self.p:
             return img.convert('L').convert(img.mode)
         return img
 
@@ -189,9 +193,9 @@ class RandomGaussianBlur:
         self.radius_range = radius_range
 
     def __call__(self, img):
-        if random.random() < self.p:
+        if sample_rng().random() < self.p:
             from PIL import ImageFilter
-            return img.filter(ImageFilter.GaussianBlur(radius=random.uniform(*self.radius_range)))
+            return img.filter(ImageFilter.GaussianBlur(radius=sample_rng().uniform(*self.radius_range)))
         return img
 
 
@@ -234,14 +238,14 @@ class RandomResizedCropAndInterpolation:
         w, h = img.size
         area = w * h
         for _ in range(10):
-            target_area = random.uniform(*scale) * area
+            target_area = sample_rng().uniform(*scale) * area
             log_ratio = (math.log(ratio[0]), math.log(ratio[1]))
-            aspect_ratio = math.exp(random.uniform(*log_ratio))
+            aspect_ratio = math.exp(sample_rng().uniform(*log_ratio))
             tw = int(round(math.sqrt(target_area * aspect_ratio)))
             th = int(round(math.sqrt(target_area / aspect_ratio)))
             if tw <= w and th <= h:
-                left = random.randint(0, w - tw)
-                top = random.randint(0, h - th)
+                left = sample_rng().randint(0, w - tw)
+                top = sample_rng().randint(0, h - th)
                 return top, left, th, tw
         # fallback: center crop to in-range aspect
         in_ratio = w / h
@@ -260,7 +264,7 @@ class RandomResizedCropAndInterpolation:
     def __call__(self, img):
         top, left, th, tw = self.get_params(img, self.scale, self.ratio)
         if isinstance(self.interpolation, (tuple, list)):
-            interp = random.choice(self.interpolation)
+            interp = sample_rng().choice(self.interpolation)
         else:
             interp = self.interpolation
         img = img.crop((left, top, left + tw, top + th))
@@ -291,20 +295,20 @@ class ColorJitter:
         from PIL import ImageEnhance
         ops = []
         if self.brightness:
-            ops.append(lambda im: ImageEnhance.Brightness(im).enhance(random.uniform(*self.brightness)))
+            ops.append(lambda im: ImageEnhance.Brightness(im).enhance(sample_rng().uniform(*self.brightness)))
         if self.contrast:
-            ops.append(lambda im: ImageEnhance.Contrast(im).enhance(random.uniform(*self.contrast)))
+            ops.append(lambda im: ImageEnhance.Contrast(im).enhance(sample_rng().uniform(*self.contrast)))
         if self.saturation:
-            ops.append(lambda im: ImageEnhance.Color(im).enhance(random.uniform(*self.saturation)))
+            ops.append(lambda im: ImageEnhance.Color(im).enhance(sample_rng().uniform(*self.saturation)))
         if self.hue:
             def hue_op(im):
-                f = random.uniform(*self.hue)
+                f = sample_rng().uniform(*self.hue)
                 hsv = im.convert('HSV')
                 arr = np.array(hsv)
                 arr[..., 0] = (arr[..., 0].astype(np.int16) + int(f * 255)) % 256
                 return Image.fromarray(arr, 'HSV').convert(im.mode)
             ops.append(hue_op)
-        random.shuffle(ops)
+        sample_rng().shuffle(ops)
         for op in ops:
             img = op(img)
         return img

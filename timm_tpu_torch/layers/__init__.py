@@ -3,7 +3,7 @@ from .config import softmax_with_policy
 from .create_act import gelu, get_act_fn
 from .drop import (
     DropPath, Dropout, apply_keep_mask, calculate_drop_path_rates, drop_path, dropout,
-    set_drop_generator,
+    get_drop_generator, set_drop_generator,
 )
 from .layer_scale import LayerScale
 from .linear import Linear

@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 __all__ = ['DropPath', 'Dropout', 'apply_keep_mask', 'calculate_drop_path_rates', 'drop_path',
-           'dropout', 'set_drop_generator']
+           'dropout', 'get_drop_generator', 'set_drop_generator']
 
 
 def apply_keep_mask(x: torch.Tensor, mask: torch.Tensor, keep_prob: float,
@@ -94,6 +94,18 @@ def set_drop_generator(module: nn.Module, generator: torch.Generator) -> nn.Modu
         if isinstance(m, (DropPath, Dropout)):
             m.generator = generator
     return module
+
+
+def get_drop_generator(module: nn.Module) -> Optional[torch.Generator]:
+    """The generator the DropPath and Dropout modules under ``module`` draw
+    from (None without such modules); more than one raises, since a
+    checkpoint stores one stream."""
+    gens = {id(m.generator): m.generator for m in module.modules()
+            if isinstance(m, (DropPath, Dropout)) and m.generator is not None}
+    if len(gens) > 1:
+        raise RuntimeError('the drop layers draw from more than one generator; '
+                           'give them one with set_drop_generator')
+    return next(iter(gens.values()), None)
 
 
 def calculate_drop_path_rates(drop_path_rate: float, depth: int) -> List[float]:

@@ -12,17 +12,28 @@ of the fused AdamW + EMA kernel (``kernels/fused_adamw.py``).
 
 ``step(lr, grad_scale, ok, ema_decay)`` takes what the train step computes
 on the device: the clip factor, the non-finite guard's flag and the EMA
-decay; with ``ok`` false nothing changes. Moving the model after building
-the optimizer breaks the views and makes ``step`` raise.
+decay; with ``ok`` false nothing changes. A learning rate given to ``step``
+is kept as ``lr``, as optax's ``inject_hyperparams`` keeps the last one.
+Moving the model after building the optimizer breaks the views and makes
+``step`` raise.
+
+``state_arrays`` / ``load_state_arrays`` give the state as a flat
+``{key: np.ndarray}`` in the parameters' own names and layout: ``count``,
+``learning_rate`` and per leaf ``mu.<name>`` / ``nu.<name>`` (AdamW) or
+``trace.<name>`` (SGD). A bf16 first moment is stored as fp32, which holds
+it exactly. Loading copies into the flat buffers in place: parameters and
+``.grad`` stay views of them.
 """
 from __future__ import annotations
 
 from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..kernels.fused_adamw import fused_adamw
+from ..utils.serialization import to_numpy
 
 __all__ = ['AdamW', 'SGD']
 
@@ -63,6 +74,7 @@ class _FlatOptimizer:
                 p.data = view
                 p.grad = self._view(self.flat_grad, name)
         self.ema: Optional[torch.Tensor] = None
+        self.count = torch.zeros((), dtype=torch.int32, device=self.device)
 
     def _view(self, flat: torch.Tensor, name: str) -> torch.Tensor:
         offset, shape = self._slots[name]
@@ -108,6 +120,76 @@ class _FlatOptimizer:
              ok: Optional[torch.Tensor] = None, ema_decay: float = 0.0) -> None:
         raise NotImplementedError
 
+    def _take_lr(self, lr: Optional[float]) -> float:
+        if lr is not None:
+            self.lr = float(lr)
+        return self.lr
+
+    def slots(self) -> Dict[str, torch.Tensor]:
+        """The per-leaf state buffers by slot name."""
+        return {}
+
+    def host_views(self, flat: torch.Tensor) -> Dict[str, np.ndarray]:
+        """{parameter name: numpy copy} of a flat buffer: one device-to-host
+        copy of the whole buffer, then slices of it."""
+        host = to_numpy(flat)
+        out = {}
+        for name, _ in self._params:
+            offset, shape = self._slots[name]
+            out[name] = host[offset:offset + shape.numel()].reshape(tuple(shape)).copy()
+        return out
+
+    def load_views(self, flat: torch.Tensor, arrays: Mapping[str, np.ndarray], what: str,
+                   strict: bool = True) -> List[str]:
+        """Copy ``arrays`` ({parameter name: array}) into the views of
+        ``flat`` in place; returns the names it did not find. A shape
+        mismatch raises; a missing name raises under ``strict``."""
+        staged = torch.empty(flat.numel(), dtype=torch.float32)
+        staged.copy_(flat.detach().float().cpu())
+        missing = []
+        for name, _ in self._params:
+            offset, shape = self._slots[name]
+            if name not in arrays:
+                missing.append(name)
+                continue
+            value = np.asarray(arrays[name])
+            if tuple(value.shape) != tuple(shape):
+                raise ValueError(f'{what}.{name}: checkpoint shape {tuple(value.shape)}, '
+                                 f'parameter shape {tuple(shape)}')
+            staged[offset:offset + shape.numel()] = torch.from_numpy(
+                np.ascontiguousarray(value, np.float32)).reshape(-1)
+        if strict and missing:
+            raise KeyError(f'Missing checkpoint keys: {[f"{what}.{n}" for n in missing[:5]]}')
+        with torch.no_grad():
+            flat.copy_(staged.to(flat.dtype).to(flat.device))
+        return missing
+
+    def state_arrays(self) -> Dict[str, np.ndarray]:
+        out = {'count': self.count.cpu().numpy().copy(),
+               'learning_rate': np.asarray(self.lr, np.float32)}
+        for slot, buf in self.slots().items():
+            out.update({f'{slot}.{k}': v for k, v in self.host_views(buf).items()})
+        return out
+
+    def load_state_arrays(self, state: Mapping[str, np.ndarray], strict: bool = True) -> None:
+        """Load what ``state_arrays`` gave (keys without the ``optimizer.``
+        prefix). Under ``strict`` a missing or an unknown key raises."""
+        slots = self.slots()
+        known = {'count', 'learning_rate'}
+        for slot, buf in slots.items():
+            prefix = slot + '.'
+            sub = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+            known.update(prefix + k for k in sub)
+            self.load_views(buf, sub, 'optimizer.' + slot, strict=strict)
+        unknown = sorted(set(state) - known)
+        if strict and (unknown or 'count' not in state):
+            raise KeyError(f'optimizer state: unknown keys {unknown[:5]}'
+                           + ('' if 'count' in state else ', no count'))
+        if 'count' in state:
+            self.count.fill_(int(np.asarray(state['count'])))
+        if 'learning_rate' in state:
+            self.lr = float(np.asarray(state['learning_rate']))
+
 
 class AdamW(_FlatOptimizer):
     """optax's ``adamw`` (``scale_by_adam -> add_decayed_weights(mask) ->
@@ -125,12 +207,14 @@ class AdamW(_FlatOptimizer):
             raise NotImplementedError(f'mu_dtype {mu_dtype}: the port stores m in fp32 or bf16')
         self.m = torch.zeros(self.flat_param.numel(), dtype=mu_dtype, device=self.device)
         self.v = torch.zeros_like(self.flat_param)
-        self.count = torch.zeros((), dtype=torch.int32, device=self.device)
+
+    def slots(self):
+        return {'mu': self.m, 'nu': self.v}
 
     def step(self, lr=None, grad_scale=None, ok=None, ema_decay=0.0):
         self.sync_grads()
         fused_adamw(self.flat_param, self.flat_grad, self.m, self.v, self.ema, self.count,
-                    lr=self.lr if lr is None else lr, b1=self.b1, b2=self.b2, eps=self.eps,
+                    lr=self._take_lr(lr), b1=self.b1, b2=self.b2, eps=self.eps,
                     weight_decay=self.weight_decay, n_decay=self.n_decay,
                     ema_decay=ema_decay, grad_scale=grad_scale, ok=ok)
 
@@ -148,6 +232,9 @@ class SGD(_FlatOptimizer):
         self.nesterov = nesterov
         self.trace = None if momentum is None else torch.zeros_like(self.flat_param)
 
+    def slots(self):
+        return {} if self.trace is None else {'trace': self.trace}
+
     def step(self, lr=None, grad_scale=None, ok=None, ema_decay=0.0):
         self.sync_grads()
         p = self.flat_param
@@ -162,9 +249,10 @@ class SGD(_FlatOptimizer):
             trace = g + mom * self.trace
             g = g + mom * trace if self.nesterov else trace
             new.append((self.trace, trace))
-        lr = self.lr if lr is None else lr
+        lr = self._take_lr(lr)
         p_new = p + torch.tensor(-lr, dtype=f32) * g
         new.append((p, p_new))
+        new.append((self.count, self.count + 1))
         if self.ema is not None:
             d = torch.tensor(ema_decay, dtype=f32)
             new.append((self.ema, self.ema * d + p_new * (1 - d)))

@@ -80,6 +80,7 @@ def pad_rows(x: np.ndarray, bucket: int, *more) -> Tuple:
     paths). Returns ``(x_padded, *more_padded, valid)`` where ``valid`` is a
     bool mask marking real rows; consumers drop padded-slot outputs with
     ``strip_rows`` (or fold ``valid`` into their reduction like validate.py).
+    Torch tensors pad on their own device (``valid`` stays numpy).
     """
     arrays = (x,) + more
     n = int(arrays[0].shape[0])
@@ -94,6 +95,10 @@ def pad_rows(x: np.ndarray, bucket: int, *more) -> Tuple:
         return arrays + (valid,)
     out = []
     for a in arrays:
+        if hasattr(a, 'expand') and hasattr(a, 'device'):  # a torch tensor
+            import torch
+            out.append(torch.cat([a, a[:1].expand(bucket - n, *a.shape[1:])]))
+            continue
         a = np.asarray(a)
         out.append(np.concatenate([a, np.repeat(a[:1], bucket - n, axis=0)]))
     return tuple(out) + (valid,)

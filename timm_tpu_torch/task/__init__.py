@@ -1,2 +1,2 @@
 from .classification import ClassificationTask
-from .task import TrainingTask
+from .task import Normalize, TrainingTask

@@ -12,24 +12,49 @@ EMA itself is a buffer of the optimizer, updated in the same pass. No value
 is read back to the host except the guard's counters, which the sentinel
 polls as in the JAX package.
 
-Checkpoint state (``get_checkpoint_state`` / ``load_checkpoint_state``) and
-sharded placement are not ported yet (ROADMAP §A.5).
+Checkpoint state (``get_checkpoint_state`` / ``load_checkpoint_state``) is
+the JAX package's single flat dict with its prefixes: ``state_dict.*``,
+``state_dict_ema.*``, ``optimizer.*`` and ``model_state.*`` in the port's
+names and torch layout (``utils/serialization.py``), plus the drop-path /
+dropout generator's state under ``_resume.drop_rng_state``, which JAX does
+not need because it keys its dropout streams by step. Loading copies into
+the parameters and the optimizer's flat buffers in place.
+``models/_jax_convert.py`` turns a JAX task checkpoint into this form.
+Sharded placement is not ported (ROADMAP A.5.11).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
-from ..layers.drop import set_drop_generator
+from ..layers.drop import get_drop_generator, set_drop_generator
 from ..resilience import (
-    NonFiniteSentinel, guard_enabled, new_sentinel_state, tree_all_finite, update_sentinel_state,
+    DROP_RNG_KEY, NonFiniteSentinel, capture_drop_rng, guard_enabled, new_sentinel_state,
+    restore_drop_rng, tree_all_finite, update_sentinel_state,
 )
+from ..utils.serialization import add_prefix, load_module_arrays, module_arrays, split_prefix
 from ..utils.clip_grad import clip_scale, dispatch_clip_grad, global_grad_norm
 from ..utils.model_ema import ModelEmaV3
 
-__all__ = ['TrainingTask']
+__all__ = ['Normalize', 'TrainingTask']
+
+
+class Normalize:
+    """(x - mean) / std in fp32 on ``device``, cast back to x's dtype; the
+    training task's input normalization, shared with the eval drivers."""
+
+    def __init__(self, mean, std, device):
+        self.mean = torch.as_tensor(mean, dtype=torch.float32, device=device).reshape(1, 1, 1, -1)
+        self.std = torch.as_tensor(1.0 if std is None else std, dtype=torch.float32,
+                                   device=device).reshape(1, 1, 1, -1)
+
+    def __call__(self, x) -> torch.Tensor:
+        x = torch.as_tensor(x).to(self.mean.device)
+        y = (x.float() - self.mean) / self.std
+        return y if x.dtype == torch.float32 else y.to(x.dtype)
 
 
 class TrainingTask:
@@ -59,12 +84,7 @@ class TrainingTask:
         self._nonfinite_guard = guard_enabled(nonfinite_guard)
         self.sentinel = NonFiniteSentinel(nonfinite_tolerance) if self._nonfinite_guard else None
         self._sentinel_state = new_sentinel_state(self.device) if self._nonfinite_guard else None
-        if mean is not None:
-            self._norm_mean = torch.as_tensor(mean, dtype=torch.float32, device=self.device).reshape(1, 1, 1, -1)
-            self._norm_std = torch.as_tensor(1.0 if std is None else std, dtype=torch.float32,
-                                             device=self.device).reshape(1, 1, 1, -1)
-        else:
-            self._norm_mean = self._norm_std = None
+        self._normalize = Normalize(mean, std, self.device) if mean is not None else None
         self.ema: Optional[ModelEmaV3] = None
         self.ema_params: Optional[Dict[str, torch.Tensor]] = None
 
@@ -78,11 +98,9 @@ class TrainingTask:
 
     def normalize_input(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """(x - mean) / std in fp32 on the device, cast back to x's dtype."""
-        if self._norm_mean is None or 'input' not in batch:
+        if self._normalize is None or 'input' not in batch:
             return batch
-        x = batch['input']
-        y = (x.float() - self._norm_mean) / self._norm_std
-        return dict(batch, input=y if x.dtype == torch.float32 else y.to(x.dtype))
+        return dict(batch, input=self._normalize(batch['input']))
 
     # -- setup ---------------------------------------------------------------
     def setup_ema(self, decay: float = 0.9999, warmup: bool = False, **kwargs):
@@ -172,3 +190,54 @@ class TrainingTask:
             return self.eval_forward(self.model, batch)
         finally:
             self.model.train()
+
+    # -- checkpoint ------------------------------------------------------------
+    def checkpoint_keys(self) -> List[str]:
+        """The keys ``get_checkpoint_state`` returns, without copying state."""
+        sd_keys = set(self.model.state_dict().keys())
+        keys = [f'state_dict.{n}' for n, _ in self.model.named_parameters()]
+        keys += [f'model_state.{n}' for n, _ in self.model.named_buffers() if n in sd_keys]
+        opt = self.optimizer
+        if self.ema_params is not None:
+            keys += [f'state_dict_ema.{n}' for n in self.ema_params]
+        if opt is not None:
+            keys += ['optimizer.count', 'optimizer.learning_rate']
+            keys += [f'optimizer.{slot}.{n}' for slot in opt.slots() for n, _ in opt._params]
+        if get_drop_generator(self.model) is not None:
+            keys.append(DROP_RNG_KEY)
+        return keys
+
+    def get_checkpoint_state(self) -> Dict[str, np.ndarray]:
+        """The flat checkpoint dict: host copies of the parameters, EMA,
+        optimizer state, persistent buffers and drop generator state."""
+        params, buffers = module_arrays(self.model)
+        state = add_prefix(params, 'state_dict')
+        opt = self.optimizer
+        if self.ema_params is not None:
+            state.update(add_prefix(opt.host_views(opt.ema), 'state_dict_ema'))
+        if opt is not None:
+            state.update(add_prefix(opt.state_arrays(), 'optimizer'))
+        state.update(add_prefix(buffers, 'model_state'))
+        state.update(capture_drop_rng(get_drop_generator(self.model)))
+        return state
+
+    def load_checkpoint_state(self, state: Mapping[str, np.ndarray], strict: bool = True,
+                              load_opt: bool = True):
+        """Restore from a flat checkpoint dict, in place. ``strict``: a
+        parameter, EMA or optimizer entry missing from ``state`` raises (a
+        shape mismatch always does). ``load_opt=False`` keeps the
+        optimizer's state as it is. Persistent buffers load when present."""
+        load_module_arrays(dict(self.model.named_parameters()), split_prefix(state, 'state_dict'),
+                           'state_dict', strict=strict)
+        opt = self.optimizer
+        if self.ema_params is not None and any(k.startswith('state_dict_ema.') for k in state):
+            opt.load_views(opt.ema, split_prefix(state, 'state_dict_ema'), 'state_dict_ema',
+                           strict=strict)
+        if load_opt and opt is not None and any(k.startswith('optimizer.') for k in state):
+            opt.load_state_arrays(split_prefix(state, 'optimizer'), strict=strict)
+        buffers = split_prefix(state, 'model_state')
+        if buffers:
+            sd_keys = set(self.model.state_dict().keys())
+            load_module_arrays({n: b for n, b in self.model.named_buffers() if n in sd_keys},
+                               buffers, 'model_state', strict=False)
+        restore_drop_rng(state, get_drop_generator(self.model))
