@@ -20,16 +20,28 @@ and erasing sampled on the host, the augment-epilogue kernel). Last, phase
 by an injected SIGTERM after update 12 (B) and resumed with ``--resume
 auto`` (C), C's checkpoint held to A's; then ``validate`` and
 ``inference`` on A's EMA weights, held to A's last evaluation, and one
-``python -m timm_tpu_torch.validate`` subprocess. The flash
-and augment kernels' times are device times from CUDA-graph replays
-(``kernel_ms``) beside the time of eager calls, the wrapper's host time
-included (``call_ms``); each kernel's time is set against its bound
-(``bound_share``) and against the time of the design it replaced
-(``previous_ms``), which is built from ``kernels/csrc/previous/`` and timed
-on the same inputs in the same way. Each
-phase prints one JSON line; then come the kernel summary line, the card's
-name and power limit as nvidia-smi gives them, and the last line
-``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
+``python -m timm_tpu_torch.validate`` subprocess.
+
+Phase ``kernels`` reads the kernel registry (``timm_tpu_torch/kernels/
+registry.py``): every registered kernel is held to its plain version at
+every case's dry and live arm (within ``parity_tol`` and, for flash,
+element by element within its ``error_bound``), then timed by the harness
+(``kernels/harness.py``): device time from CUDA-graph replays
+(``kernel_ms``), eager calls with the wrapper's host time (``call_ms``), the
+plain version and the library call, each set against the registry's bound
+(``bound_share``); one verdict line per kernel (keep or delete against the
+plain version) precedes the JSON. Then the checks the registry does not
+make: the flash kernel's sharp-score case against an fp64 oracle, the
+fused AdamW's clipped steps and NaN step on ViT-B/16's leaf set, the
+augment epilogue's bf16 output, and the previous designs
+(``kernels/csrc/previous/``, ``previous_ms``), timed the same way. The
+engine serves every bucket by replaying the CUDA graph it captured at
+``add_model``; phase ``serve`` checks under torch.profiler that each
+replay ran the captured flash kernels, and holds each replay bit for bit
+against an eager forward; phase ``breakdown`` times eager forwards against
+replays per bucket. Each phase prints one JSON line; then come the kernel
+summary line, the card's name and power limit as nvidia-smi gives them,
+and the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line; with no CUDA device, or outside the repository, it exits
 non-zero at once. It imports nothing of JAX or of the JAX package.
 """
@@ -48,13 +60,12 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12    # outside the tensor cores
-PARITY_TOL = 2e-2          # max abs, flash kernel vs plain (the TPU registry's parity_tol)
-# fused_adamw kernel vs plain (the TPU registry's parity_tol): max abs on p and
-# ema; m and v, far below 1, relative to their largest magnitude
+# Every kernel is held to its plain version within its registry parity_tol
+# (timm_tpu_torch/kernels/registry.py, the JAX registry's values) and, for
+# flash attention, element by element within its error_bound (scaled to
+# each output); and timed and bounded there (kernels/harness.py). Beyond that:
+# fused_adamw kernel vs plain over 3 clipped steps on ViT-B/16's leaf set:
+# max abs on p and ema; m and v, far below 1, relative to their largest magnitude
 ADAMW_TOL = 1e-6
 # augment_epilogue kernel vs plain (the TPU registry's parity_tol): max abs
 # for fp32 out; for bf16 out one bf16 ulp of the plain value, and no less
@@ -66,7 +77,13 @@ SERVE_REL_L2_TOL = 2e-2    # a served row vs the direct bf16 forward of its imag
 GRAD_REL_L2_TOL = 5e-2     # one step's bf16 gradients on the card vs fp32 on the CPU
 SERVE_BUCKETS = (1, 4, 16, 64)
 SERVE_BURSTS = (1, 3, 10, 64, 64, 40, 2, 16)  # 200 requests; every bucket dispatches
-KERNELS = ('flash_attention', 'fused_adamw', 'augment_epilogue')
+# the TPU kernel each registered kernel replaces
+REPLACES = {'flash_attention': 'timm_tpu/kernels/flash_attention.py:79 (_fwd_kernel)',
+            'fused_adamw': 'timm_tpu/kernels/fused_adamw.py:54 (_kernel)',
+            'augment_epilogue': 'timm_tpu/kernels/augment_epilogue.py:55 (_epilogue_kernel)'}
+# the registered case on each kernel's main path: its numbers head the kernels line
+MAIN_CASE = {'flash_attention': 'vit_b16_bucket64', 'fused_adamw': 'vit_b16',
+             'augment_epilogue': 'mix_erase_b64'}
 ADAMW_HP = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.05)
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARMUP_STEPS, TRAIN_LR = 64, 20, 2, 3e-4
 # phase input_train: a folder of seeded PNGs, 3 classes, 256-320 px a side
@@ -101,51 +118,6 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, timeout=60)
     check(proc.returncode == 0, f'nvidia-smi failed: {proc.stderr.strip()}')
     return proc.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of one call, from CUDA events around ``iters`` calls."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, per_graph: int = 20, replays: int = 10) -> float:
-    """Device time of one call: CUDA events around replays of a CUDA graph
-    that holds ``per_graph`` calls, so the wrapper's host time (tens of
-    microseconds of Python) is left out of a kernel that runs for less."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(per_graph):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (per_graph * replays)
-    del graph
-    return ms
 
 
 def rel_l2(a: np.ndarray, b: np.ndarray) -> float:
@@ -209,8 +181,9 @@ def phase_build():
 
     import torch
     from timm_tpu_torch.kernels import kernel_smem_bytes
+    from timm_tpu_torch.kernels import registry
     from timm_tpu_torch.kernels._build import SOURCE_DIR, load_library
-    jobs = ([(name, SOURCE_DIR) for name in KERNELS]
+    jobs = ([(name, SOURCE_DIR) for name in registry.kernel_names()]
             + [(name, SOURCE_DIR / 'previous') for name in PREVIOUS_KERNELS])
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -250,30 +223,43 @@ def phase_build():
     return previous
 
 
-def _attention_case(name, B, H, N, D, valid, seed, dtype='bfloat16', qk_scale=0.5, v_scale=0.5):
-    """q, k, v of ``dtype`` (bf16 or fp16) from a seeded generator, standard
-    normal times ``qk_scale`` (q, k) and ``v_scale`` (v); ``valid`` = per-row
-    count of valid keys (None: unmasked). At the default scales the scores
-    lie within about one unit and the case is held to the plain version;
-    with larger ones, to the fp64 oracle."""
+def phase_kernels():
+    """Every registered kernel through the harness on the card: parity
+    against its plain version at every case's dry and live arm, then the
+    A/B at the live arm (device time from graph replays, eager call time,
+    the plain version's and the library call's, the registry's bound), and
+    one verdict line per kernel. Returns {kernel: verdict record}."""
+    from timm_tpu_torch.kernels import harness, registry
+    counters = registry.launch_counters()
+    verdicts = {}
+    for spec in registry.all_specs():
+        before = counters[spec.name].launches
+        rec = harness.ab_verdict(spec, live=True, device='cuda')
+        # the parity checks, the warm-ups, the captures and the timed launches
+        rec['launches'] = counters[spec.name].launches - before
+        print(harness.format_verdict_line(rec), flush=True)
+        emit({'phase': 'kernels', 'kernel': spec.name,
+              'replaces': REPLACES[spec.name], **rec})
+        check(rec['parity_ok'], f'{spec.name}: kernel vs plain {rec["parity_max_err"]} '
+                                f'(tol {rec["parity_tol"]}), '
+                                f'{rec.get("error_over_bound", 0.0)} times its bound')
+        check(rec['verdict'] == 'keep', f'{spec.name}: verdict {rec["verdict"]}: {rec["reason"]}')
+        verdicts[spec.name] = rec
+    return verdicts
+
+
+def _sharp_case(B, H, N, D, valid, seed, dtype='bfloat16', qk_scale=2.0, v_scale=1.0):
+    """q, k, v from a seeded generator with scores spread over several
+    units (standard normal times ``qk_scale`` for q and k), and a key mask
+    of ``valid`` keys per row."""
     import torch
     g = torch.Generator(device='cuda').manual_seed(seed)
     shape = (B, H, N, D)
     q, k, v = (torch.randn(shape, generator=g, device='cuda').mul_(a).to(getattr(torch, dtype))
                for a in (qk_scale, qk_scale, v_scale))
-    mask = None
-    if valid is not None:
-        mask = (torch.arange(N, device='cuda')[None, :] <
-                torch.as_tensor(valid, device='cuda')[:, None]).view(B, 1, 1, N)
-    keys = [N] * B if valid is None else list(valid)
-    # the least work the card could do: read q, k, v (and the mask) once,
-    # write o once; 4 * N * keys * D operations per (batch, head)
-    nbytes = 4 * B * H * N * D * 2 + (0 if mask is None else B * N)
-    flops = sum(4 * H * N * kb * D for kb in keys)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-    return dict(name=name, q=q, k=k, v=v, mask=mask, shape=[B, H, N, D], dtype=dtype,
-                reference='plain' if qk_scale == 0.5 else 'fp64',
-                bound_ms=max(t_bytes, t_ops), bound_by='bytes' if t_bytes >= t_ops else 'operations')
+    mask = (torch.arange(N, device='cuda')[None, :] <
+            torch.as_tensor(valid, device='cuda')[:, None]).view(B, 1, 1, N)
+    return q, k, v, mask
 
 
 def _previous_flash(lib, q, k, v, mask, scale: float):
@@ -307,98 +293,79 @@ def _fp64_oracle(q, k, v, mask):
     return p @ v.double(), p @ v.double().abs()
 
 
-def _held_to(c, out, reference):
-    """(max abs error, the check's measure, the measure's limit): against
-    the plain version, max abs within PARITY_TOL; against the fp64 oracle,
-    the largest ratio of error to the per-element bound, within 1."""
-    if c['reference'] == 'plain':
-        err = float((out.float() - reference.float()).abs().max())
-        return err, err, PARITY_TOL
-    o, pv_abs = reference
+def _sharp_excess(out, oracle, dtype):
+    """The largest ratio of the error to its per-element bound: p and the
+    output rounded to a type with 2^-bits relative precision allow 2^-bits
+    (softmax-weighted |v| + |o|), and SHARP_SLACK covers ex2.approx and the
+    fp32 sums."""
+    o, pv_abs = oracle
     diff = (out.double() - o).abs()
-    bound = 2.0 ** -SHARP_PRECISION_BITS[c['dtype']] * (pv_abs + o.abs()) + SHARP_SLACK
-    return float(diff.max()), float((diff / bound).max()), 1.0
+    bound = 2.0 ** -SHARP_PRECISION_BITS[dtype] * (pv_abs + o.abs()) + SHARP_SLACK
+    return float(diff.max()), float((diff / bound).max())
 
 
-def phase_kernels(previous_lib):
+def phase_flash_checks(previous_lib):
+    """What the harness does not hold the flash kernel to: the sharp-score
+    case (score std 4, the running max changes from key tile to key tile)
+    against its fp64 oracle, and the previous design
+    (``kernels/csrc/previous/``) at every registered case, against the
+    plain version and timed the same way as the kernel."""
     import torch
-    import torch.nn.functional as F
-    from timm_tpu_torch.kernels import flash_attention, flash_attention_reference
-    cases = [
-        _attention_case('vit_b16_bucket64', 64, 12, 197, 64, None, 0),
-        _attention_case('vit_b16_pad256', 64, 12, 256, 64, [197] * 64, 1),
-        _attention_case('masked_n576', 16, 12, 576, 64,
-                        [max(1, int(576 * 0.8) - 8 * i) for i in range(16)], 2),
-        # the serving bucket whose grid is under one wave of blocks
-        _attention_case('vit_b16_bucket1', 1, 12, 197, 64, None, 3),
-        _attention_case('vit_b16_bucket64_fp16', 64, 12, 197, 64, None, 4, dtype='float16'),
-        # scores with a standard deviation of 4: the running max changes from
-        # key tile to key tile, so the alpha rescale carries the result
-        _attention_case('vit_b16_bucket64_sharp', 64, 12, 197, 64, [197 - 3 * i for i in range(64)],
-                        5, qk_scale=2.0, v_scale=1.0),
-    ]
+    from timm_tpu_torch.kernels import flash_attention, flash_attention_reference, harness, registry
+    spec = registry.get('flash_attention')
+    tol = spec.parity_tol
+    q, k, v, mask = _sharp_case(64, 12, 197, 64, [197 - 3 * i for i in range(64)], 5)
+    with torch.inference_mode():
+        out = flash_attention(q, k, v, mask=mask)
+        scale = torch.tensor(64 ** -0.5, dtype=q.dtype).item()
+        previous_out = _previous_flash(previous_lib, q, k, v, mask, scale)
+        oracle = _fp64_oracle(q, k, v, mask)
+        torch.cuda.synchronize()
+    sharp_err, sharp_excess = _sharp_excess(out, oracle, 'bfloat16')
+    previous_sharp_err, previous_sharp_excess = _sharp_excess(previous_out, oracle, 'bfloat16')
+    del q, k, v, mask, out, previous_out, oracle
     rows = []
-    for c in cases:
-        q, k, v, mask = c['q'], c['k'], c['v'], c['mask']
-        scale = torch.tensor(c['shape'][-1] ** -0.5, dtype=q.dtype).item()
-        launches_before = flash_attention.launches
+    for case in spec.cases:
+        inputs = spec.make_inputs(seed=0, device='cuda', **case.live)
+        q, k, v, mask = inputs['q'], inputs['k'], inputs['v'], inputs['mask']
+        scale = torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype).item()
         with torch.inference_mode():
-            out = flash_attention(q, k, v, mask=mask)
-            previous_out = _previous_flash(previous_lib, q, k, v, mask, scale)
-            if c['reference'] == 'plain':
-                ref = flash_attention_reference(q, k, v, mask=mask)
-            else:
-                ref = _fp64_oracle(q, k, v, mask)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(out).all()), f'{c["name"]}: non-finite kernel output')
-            err, measure, limit = _held_to(c, out, ref)
-            previous_err, previous_measure, _ = _held_to(c, previous_out, ref)
-            del out, previous_out, ref
-            # device time (graph replay) and a caller's time (eager calls,
-            # the wrapper's host time included), the previous design's the same way
-            kernel_ms = graph_ms(lambda: flash_attention(q, k, v, mask=mask))
-            call_ms = time_ms(lambda: flash_attention(q, k, v, mask=mask))
-            previous_ms = graph_ms(lambda: _previous_flash(previous_lib, q, k, v, mask, scale))
-            previous_call_ms = time_ms(lambda: _previous_flash(previous_lib, q, k, v, mask, scale))
-            plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, mask=mask), iters=10)
-            library_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-        rows.append({'case': c['name'], 'shape': c['shape'], 'dtype': c['dtype'],
-                     'masked': mask is not None, 'reference': c['reference'],
-                     'max_abs_err': err,
-                     'tol': PARITY_TOL if c['reference'] == 'plain' else
-                     f'2^-{SHARP_PRECISION_BITS[c["dtype"]]} (softmax-weighted |v| + |o|) '
-                     f'+ {SHARP_SLACK} per element',
-                     'error_over_bound': None if c['reference'] == 'plain' else measure,
-                     'kernel_ms': kernel_ms, 'call_ms': call_ms, 'plain_ms': plain_ms,
-                     'library_ms': library_ms,
-                     'previous_ms': previous_ms, 'previous_call_ms': previous_call_ms,
-                     'previous_max_abs_err': previous_err,
-                     'bound_ms': c['bound_ms'], 'bound_by': c['bound_by'],
-                     'bound_share': c['bound_ms'] / kernel_ms,
-                     'previous_bound_share': c['bound_ms'] / previous_ms,
-                     # the check, the warm-ups, the captures and the timed launches of this case
-                     'launches': flash_attention.launches - launches_before})
-        check(measure <= limit, f'{c["name"]}: kernel vs {c["reference"]}: {measure} > {limit}')
-        check(previous_measure <= limit,
-              f'{c["name"]}: previous kernel vs {c["reference"]}: {previous_measure} > {limit}')
-    emit({'phase': 'kernels', 'kernel': 'flash_attention',
-          'replaces': 'timm_tpu/kernels/flash_attention.py:79 (_fwd_kernel)', 'cases': rows})
-    return rows
+            plain = flash_attention_reference(q, k, v, mask=mask)
+            diff = (_previous_flash(previous_lib, q, k, v, mask, scale).double()
+                    - plain.double()).abs()
+            err = float(diff.max())
+            over = float((diff / spec.error_bound(plain, **inputs).double()).max())
+            rows.append({'case': case.name, 'previous_max_abs_err': err,
+                         'previous_error_over_bound': over,
+                         'previous_ms': harness.graph_ms(
+                             lambda: _previous_flash(previous_lib, q, k, v, mask, scale)),
+                         'previous_call_ms': harness.time_ms(
+                             lambda: _previous_flash(previous_lib, q, k, v, mask, scale))})
+        check(err <= tol and over <= 1.0,
+              f'{case.name}: previous flash kernel vs plain {err} (tol {tol}), {over} times '
+              f'its bound')
+        del inputs, q, k, v, mask, plain, diff
+    row = {'phase': 'kernels', 'kernel': 'flash_attention', 'check': 'sharp and previous',
+           'sharp_case': 'vit_b16_bucket64_sharp', 'sharp_max_abs_err': sharp_err,
+           'sharp_error_over_bound': sharp_excess,
+           'sharp_tol': f'2^-{SHARP_PRECISION_BITS["bfloat16"]} (softmax-weighted |v| + |o|) '
+                        f'+ {SHARP_SLACK} per element',
+           'previous_sharp_error_over_bound': previous_sharp_excess,
+           'previous_sharp_max_abs_err': previous_sharp_err, 'previous': rows}
+    emit(row)
+    check(sharp_excess <= 1.0, f'sharp case: kernel error {sharp_excess} times its fp64 bound')
+    check(previous_sharp_excess <= 1.0,
+          f'sharp case: previous kernel error {previous_sharp_excess} times its fp64 bound')
+    torch.cuda.empty_cache()
+    return row
 
 
-def _adamw_bound(n: int, mu_bytes: int):
-    """Least time for one update of n parameters: read p, g, m, v, ema and
-    write p, m, v, ema once; about 20 fp32 operations per parameter."""
-    nbytes = n * (4 * 2 + 4 + mu_bytes * 2 + 4 * 2 + 4 * 2)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, 20 * n / PEAK_FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
-
-
-def phase_fused_adamw():
-    """The fused AdamW + EMA kernel against its plain version on ViT-B/16's
-    real leaf set and weight-decay mask (the optimizer's flat layout): 3
-    updates from one state with a clip factor, fp32 and bf16 m; a NaN step
-    must change nothing; then kernel, plain, library and bound times."""
+def phase_fused_adamw_checks():
+    """What the harness does not hold the fused AdamW + EMA kernel to, on
+    ViT-B/16's real leaf set and weight-decay mask (the optimizer's flat
+    layout): 3 updates from one state with a clip factor, fp32 and bf16 m,
+    m and v held relative to their largest magnitude (a bf16 m within one
+    bf16 ulp); a NaN step must change nothing."""
     import torch
     import timm_tpu_torch
     from timm_tpu_torch.kernels import fused_adamw, fused_adamw_reference
@@ -443,85 +410,21 @@ def phase_fused_adamw():
         fused_adamw(k[0], bad, k[1], k[2], k[3], k[4], ok=torch.isfinite(bad).all(), **kw)
         torch.cuda.synchronize()
         nan_step_kept = all(torch.equal(a, b) for a, b in zip(k, keep))
-
-        kernel_ms = time_ms(lambda: fused_adamw(k[0], grads[0], k[1], k[2], k[3], k[4],
-                                                ema_decay=0.9998, **kw), iters=20, warmup=3)
-        plain_ms = time_ms(lambda: fused_adamw_reference(r[0], grads[0], r[1], r[2], r[3], r[4],
-                                                         ema_decay=0.9998, **kw),
-                           iters=5, warmup=1)
-        library_ms = None
-        if mu == torch.float32:
-            # one PyTorch call for the same update: torch's fused AdamW over
-            # the leaves (decay and no-decay groups), then the EMA lerp. It
-            # rounds differently (eps and decay order), so it is timed only.
-            mask = opt.decay_mask()
-            leaves = {name: torch.nn.Parameter(t.clone()) for name, t in opt.views(p0).items()}
-            for (name, leaf), g in zip(leaves.items(), opt.views(grads[0]).values()):
-                leaf.grad = g.clone()
-            ema = [t.clone() for t in leaves.values()]
-            lib = torch.optim.AdamW(
-                [{'params': [t for nm, t in leaves.items() if mask[nm]], 'weight_decay': 0.05},
-                 {'params': [t for nm, t in leaves.items() if not mask[nm]], 'weight_decay': 0.0}],
-                lr=1e-3, betas=(0.9, 0.999), eps=1e-8, fused=True)
-            params = list(leaves.values())
-
-            @torch.no_grad()
-            def library_step():
-                lib.step()
-                torch._foreach_lerp_(ema, params, 1 - 0.9998)
-            library_ms = time_ms(library_step, iters=20, warmup=3)
-            del leaves, ema, lib, params
-        bound_ms, bound_by = _adamw_bound(n, 2 if mu == torch.bfloat16 else 4)
         rows.append({'mu_dtype': str(mu).replace('torch.', ''), 'n': n, 'n_decay': n_decay,
                      'max_abs_err': errs, 'tol': tols, 'max_abs': scale_of,
                      'm_within_one_ulp_or_tol': m_ok,
-                     'nan_step_bit_identical': nan_step_kept, 'count_after': int(k[4]),
-                     'kernel_ms': kernel_ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
-                     'bound_ms': bound_ms, 'bound_by': bound_by, 'bound_share': bound_ms / kernel_ms})
+                     'nan_step_bit_identical': nan_step_kept, 'count_after': int(k[4])})
         for name in ('p', 'v', 'ema'):
             check(errs[name] <= tols[name],
                   f'fused_adamw {mu}: {name} max abs err {errs[name]} > {tols[name]}')
         check(m_ok, f'fused_adamw {mu}: m off by more than its tolerance ({errs["m"]})')
         check(nan_step_kept, f'fused_adamw {mu}: a NaN step changed the state')
         del state, k, r, keep
-    emit({'phase': 'kernels', 'kernel': 'fused_adamw',
-          'replaces': 'timm_tpu/kernels/fused_adamw.py:54 (_kernel)', 'cases': rows})
+    emit({'phase': 'kernels', 'kernel': 'fused_adamw', 'check': '3 clipped steps and a NaN step',
+          'cases': rows})
     del model, opt, p0, grads, m0, v0
     torch.cuda.empty_cache()
     return rows
-
-
-def _augment_case(name, B, size, K, mix, out_dtype, seed, width=None):
-    """Inputs of the augment epilogue as the JAX registry makes them
-    (timm_tpu/kernels/augment_epilogue.py ``_make_inputs``): a uint8 batch,
-    K erase boxes per image, and with ``mix`` per-image lam, cutmix flags and
-    boxes; without, the identity values the device stage passes."""
-    import torch
-    rng = np.random.default_rng(seed)
-    h, w = size, width or size
-    image = rng.integers(0, 256, (B, h, w, 3), dtype=np.uint8)
-    boxes = np.zeros((B, K, 4), np.int32)
-    for i in range(B):
-        for k in range(K):
-            eh, ew = rng.integers(4, h // 2), rng.integers(4, w // 2)
-            boxes[i, k] = (rng.integers(0, h - eh), rng.integers(0, w - ew), eh, ew)
-    if mix:
-        yl, xl = rng.integers(0, h // 2, B), rng.integers(0, w // 2, B)
-        lam = rng.uniform(0.2, 1.0, B).astype(np.float32)
-        cut = rng.integers(0, 2, B).astype(bool)
-        bbox = np.stack([yl, yl + h // 4, xl, xl + w // 4], 1).astype(np.int32)
-    else:
-        lam, cut, bbox = np.ones(B, np.float32), np.zeros(B, np.int32), np.zeros((B, 4), np.int32)
-    args = [torch.from_numpy(a).cuda() for a in (image, lam, cut, bbox, boxes)]
-    out_bytes = torch.empty((), dtype=out_dtype).element_size()
-    n = image.size
-    # the least work: read the uint8 batch once, write the output once;
-    # about 20 fp32 operations per element (two divisions, the blend, the
-    # box tests, the normalise)
-    nbytes = n * (1 + out_bytes) + sum(a.numel() * a.element_size() for a in args[1:])
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, 20 * n / PEAK_FP32_FLOPS * 1e3
-    return dict(name=name, args=args, shape=[B, h, w, 3], boxes=K, mix=mix, out_dtype=out_dtype,
-                bound_ms=max(t_bytes, t_ops), bound_by='bytes' if t_bytes >= t_ops else 'operations')
 
 
 def _within_one_ulp(out, ref, mantissa_bits: int, floor: float) -> bool:
@@ -552,61 +455,48 @@ def _previous_augment(lib, image, lam, use_cutmix, bbox, erase_box, *, mean, std
     return out
 
 
-def phase_augment_epilogue(previous_lib):
-    """The augment-epilogue kernel against its plain version on the card:
-    the registry's two cases (mix_erase with K 1, no_mix) at batch 64 and
-    128 at 224 px with fp32 out, and two edge cases (odd batch, W*C not a
-    multiple of 4, K 3, bf16 out; H*W*C a multiple of 4 or odd); then
-    kernel, previous design, plain and bound times."""
+def phase_augment_checks(previous_lib):
+    """What the harness does not hold the augment epilogue to: bf16 output
+    at the two edge shapes, within one bf16 ulp of the plain value (at
+    least 1e-6 where the blend cancels to near zero), and the previous
+    design (``kernels/csrc/previous/``) at every registered case and the
+    bf16 ones, against the plain version and timed the same way as the
+    kernel."""
     import torch
-    from timm_tpu_torch.kernels import augment_epilogue, augment_epilogue_reference
-    kw = dict(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225), re_mean=(0.485, 0.456, 0.406))
-    cases = [
-        _augment_case('mix_erase_b64', 64, 224, 1, True, torch.float32, 0),
-        _augment_case('no_mix_b64', 64, 224, 1, False, torch.float32, 1),
-        _augment_case('mix_erase_b128', 128, 224, 1, True, torch.float32, 2),
-        _augment_case('no_mix_b128', 128, 224, 1, False, torch.float32, 3),
-        # W*C = 663: 4-byte groups cross rows (H*W*C a multiple of 4), and
-        # one byte a thread (H*W*C odd)
-        _augment_case('edge_odd_b_bf16', 63, 224, 3, True, torch.bfloat16, 4, width=221),
-        _augment_case('edge_odd_b_bf16_odd_hwc', 63, 223, 3, True, torch.bfloat16, 5, width=221),
-    ]
+    from timm_tpu_torch.kernels import augment_epilogue, augment_epilogue_reference, harness, registry
+    spec = registry.get('augment_epilogue')
+    runs = [(case.name, case.live, case.statics, torch.float32) for case in spec.cases]
+    runs += [(case.name + '_bf16', case.live, case.statics, torch.bfloat16)
+             for case in spec.cases if case.name.startswith('edge')]
     rows = []
-    for c in cases:
-        args, dt = c['args'], c['out_dtype']
-        launches_before = augment_epilogue.launches
-        out = augment_epilogue(*args, out_dtype=dt, **kw)
-        previous_out = _previous_augment(previous_lib, *args, out_dtype=dt, **kw)
-        ref = augment_epilogue_reference(*args, out_dtype=dt, **kw)
-        torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        ok = err <= AUGMENT_TOL if dt == torch.float32 else _within_one_ulp(out, ref, 7, AUGMENT_TOL)
-        previous_ok = (bool(torch.equal(previous_out, ref)) if dt == torch.float32
-                       else _within_one_ulp(previous_out, ref, 7, AUGMENT_TOL))
-        kernel_ms = graph_ms(lambda: augment_epilogue(*args, out_dtype=dt, **kw))
-        call_ms = time_ms(lambda: augment_epilogue(*args, out_dtype=dt, **kw))
-        previous_ms = graph_ms(lambda: _previous_augment(previous_lib, *args, out_dtype=dt, **kw))
-        previous_call_ms = time_ms(lambda: _previous_augment(previous_lib, *args, out_dtype=dt, **kw))
-        plain_ms = time_ms(lambda: augment_epilogue_reference(*args, out_dtype=dt, **kw), iters=10)
-        rows.append({'case': c['name'], 'shape': c['shape'], 'boxes': c['boxes'], 'mix': c['mix'],
-                     'out_dtype': str(dt).replace('torch.', ''), 'max_abs_err': err,
-                     'bit_identical': bool(torch.equal(out, ref)),
-                     'tol': AUGMENT_TOL if dt == torch.float32 else 'one bf16 ulp, at least 1e-6',
-                     'within_tol': ok, 'finite': bool(torch.isfinite(out).all()),
-                     'kernel_ms': kernel_ms, 'call_ms': call_ms, 'plain_ms': plain_ms,
-                     'library_ms': None, 'previous_ms': previous_ms,
-                     'previous_call_ms': previous_call_ms, 'previous_within_tol': previous_ok,
-                     'bound_ms': c['bound_ms'], 'bound_by': c['bound_by'],
-                     'bound_share': c['bound_ms'] / kernel_ms,
-                     'previous_bound_share': c['bound_ms'] / previous_ms,
-                     'launches': augment_epilogue.launches - launches_before})
-        check(ok, f'{c["name"]}: kernel vs plain max abs err {err} outside the tolerance')
-        check(previous_ok, f'{c["name"]}: previous kernel vs plain outside the tolerance')
-        check(rows[-1]['finite'], f'{c["name"]}: non-finite kernel output')
-        del out, previous_out, ref
-    emit({'phase': 'kernels', 'kernel': 'augment_epilogue',
-          'replaces': 'timm_tpu/kernels/augment_epilogue.py:55 (_epilogue_kernel)', 'cases': rows})
-    del cases
+    for name, live, statics, dt in runs:
+        args = spec.make_inputs(seed=0, device='cuda', **live)
+        kw = dict(statics, out_dtype=dt)
+        ref = augment_epilogue_reference(**args, **kw)
+        previous_out = _previous_augment(previous_lib, *args.values(), **kw)
+        row = {'case': name, 'out_dtype': str(dt).replace('torch.', '')}
+        if dt == torch.bfloat16:
+            out = augment_epilogue(**args, **kw)
+            torch.cuda.synchronize()
+            row.update(max_abs_err=float((out.float() - ref.float()).abs().max()),
+                       within_one_ulp=_within_one_ulp(out, ref, 7, AUGMENT_TOL),
+                       bit_identical=bool(torch.equal(out, ref)),
+                       finite=bool(torch.isfinite(out).all()),
+                       previous_within_tol=_within_one_ulp(previous_out, ref, 7, AUGMENT_TOL))
+            check(row['within_one_ulp'], f'{name}: kernel vs plain outside one bf16 ulp')
+            check(row['finite'], f'{name}: non-finite kernel output')
+            del out
+        else:
+            row['previous_within_tol'] = bool(torch.equal(previous_out, ref))
+        row.update(previous_ms=harness.graph_ms(
+                       lambda: _previous_augment(previous_lib, *args.values(), **kw)),
+                   previous_call_ms=harness.time_ms(
+                       lambda: _previous_augment(previous_lib, *args.values(), **kw)))
+        check(row['previous_within_tol'], f'{name}: previous kernel vs plain outside the tolerance')
+        rows.append(row)
+        del args, ref, previous_out
+    emit({'phase': 'kernels', 'kernel': 'augment_epilogue', 'check': 'bf16 out and previous',
+          'tol_bf16': 'one bf16 ulp, at least 1e-6', 'cases': rows})
     torch.cuda.empty_cache()
     return rows
 
@@ -644,18 +534,9 @@ def phase_model():
     check(launches == depth, f'model: {launches} flash launches per forward, expected {depth}')
 
 
-def phase_serve():
-    """The port's main path: an InferenceEngine on the card serving ViT-B/16
-    in bf16. The launch count is read around this run only."""
-    import torch
-    from timm_tpu_torch import InferenceEngine
-    from timm_tpu_torch.kernels import flash_attention
-    n = sum(SERVE_BURSTS)
-    images = _images(n, seed=1)
-    engine = InferenceEngine(buckets=SERVE_BUCKETS, max_wait_ms=5.0, device='cuda')
-    engine.add_model('vit_base_patch16_224', dtype=torch.bfloat16, seed=0)
-    flash_attention.launches = 0
-    engine.start()
+def _serve_bursts(engine, images):
+    """SERVE_BURSTS through the engine, each burst awaited before the next:
+    the futures, their submit times and the wall seconds."""
     futures, submitted = [], []
     t0 = time.perf_counter()
     i = 0
@@ -668,67 +549,147 @@ def phase_serve():
         for f in batch:
             f.result(timeout=120.0)
         futures.extend(batch)
-    wall = time.perf_counter() - t0
+    return futures, submitted, time.perf_counter() - t0
+
+
+def phase_serve():
+    """The port's main path: an InferenceEngine on the card serving ViT-B/16
+    in bf16, one CUDA graph per bucket captured at add_model. The flash
+    wrapper's count is zeroed before the engine is built and read after it
+    shut down: it holds the prewarm's launches (warm-up forwards and one
+    capture per bucket) and must not move while serving, since a replay
+    runs no Python and no bucket may run eagerly. The requests are served
+    twice: under torch.profiler, whose trace must show depth flash kernels
+    for each replay the engine counted, then without it, for latency and
+    throughput. Then each bucket's replay is held bit for bit against an
+    eager forward of the same batch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from timm_tpu_torch import InferenceEngine
+    from timm_tpu_torch.kernels import flash_attention
+    n = sum(SERVE_BURSTS)
+    images = _images(n, seed=1)
+    flash_attention.launches = 0
+    engine = InferenceEngine(buckets=SERVE_BUCKETS, max_wait_ms=5.0, device='cuda')
+    engine.add_model('vit_base_patch16_224', dtype=torch.bfloat16, seed=0)
+    prewarm_launches = flash_attention.launches
+    engine.start()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _serve_bursts(engine, images)
+        torch.cuda.synchronize()
+    profiled = engine.snapshot_stats()['replays_by_bucket']
+    futures, submitted, wall = _serve_bursts(engine, images)
     engine.shutdown(drain=True)
     launches = flash_attention.launches
     stats = engine.snapshot_stats()
+    device_flash = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                       and 'flash_fwd_kernel' in e.name)
+    del prof
     served = np.stack([f.result() for f in futures])
     lat_ms = np.array([(f.done_at - s) * 1e3 for f, s in zip(futures, submitted)])
 
-    model = engine.pool.acquire('vit_base_patch16_224').model
+    res = engine.pool.acquire('vit_base_patch16_224')
+    model, graphs = res.model, engine.aot_executables('vit_base_patch16_224')
     with torch.inference_mode():
         direct = np.concatenate([
             model(torch.from_numpy(images[j:j + 8]).cuda()).float().cpu().numpy()
             for j in range(0, n, 8)])
+        replay_equal = {}
+        for b in SERVE_BUCKETS:
+            x = torch.from_numpy(_images(b, seed=10 + b))
+            replayed = graphs[b].run(x.pin_memory())
+            eager = model(x.cuda()).float()
+            replay_equal[str(b)] = bool(torch.equal(replayed, eager))
     errs = [rel_l2(served[j], direct[j]) for j in range(n)]
     depth = len(model.blocks)
+    prewarm = stats['prewarm']['vit_base_patch16_224']
     emit({'phase': 'serve', 'model': 'vit_base_patch16_224', 'dtype': 'bfloat16',
-          'requests': n, 'completed': stats['completed'], 'failed': stats['failed'],
+          'requests': 2 * n, 'completed': stats['completed'], 'failed': stats['failed'],
           'steps': stats['steps'], 'steps_by_bucket': stats['steps_by_bucket'],
+          'replays_by_bucket': stats['replays_by_bucket'],
+          # the second, unprofiled serving of the n requests
           'p50_ms': float(np.percentile(lat_ms, 50)), 'p99_ms': float(np.percentile(lat_ms, 99)),
-          'img_per_s': n / wall, 'wall_s': wall, 'flash_launches': launches,
+          'img_per_s': n / wall, 'wall_s': wall,
+          'flash_launches': launches, 'flash_launches_at_prewarm': prewarm_launches,
+          'profiled_replays_by_bucket': profiled, 'profiled_flash_kernels': device_flash,
           'max_rel_l2_vs_direct': max(errs), 'tol': SERVE_REL_L2_TOL,
-          'prewarm_ms': stats['prewarm']['vit_base_patch16_224']['ms']})
-    check(stats['completed'] == n and stats['failed'] == 0, f'serve: {stats["failed"]} failed requests')
+          'prewarm_ms': prewarm['ms'], 'prewarm': prewarm,
+          'graph_launches': {str(b): g.launches for b, g in graphs.items()},
+          'replay_equals_eager_bit_for_bit': replay_equal})
+    check(stats['completed'] == 2 * n and stats['failed'] == 0,
+          f'serve: {stats["failed"]} failed requests')
     check(set(stats['steps_by_bucket']) == set(SERVE_BUCKETS),
           f'serve: buckets dispatched {stats["steps_by_bucket"]}, expected all of {SERVE_BUCKETS}')
+    check(stats['replays_by_bucket'] == stats['steps_by_bucket'],
+          f'serve: replays {stats["replays_by_bucket"]} for steps {stats["steps_by_bucket"]}')
+    check(prewarm['mode'] == 'graph' and prewarm['programs'] == len(SERVE_BUCKETS),
+          f'serve: prewarm captured {prewarm["programs"]} graphs ({prewarm["mode"]})')
+    check(all(g.launches == {'flash_attention': depth} for g in graphs.values()),
+          f'serve: graphs captured {[g.launches for g in graphs.values()]} launches')
     check(all(np.isfinite(served).ravel()), 'serve: non-finite logits')
     check(max(errs) <= SERVE_REL_L2_TOL, f'serve: max rel L2 {max(errs)} > {SERVE_REL_L2_TOL}')
-    check(launches > 0 and launches == depth * stats['steps'],
-          f'serve: {launches} flash launches for {stats["steps"]} steps of depth {depth}')
-    return launches, model
+    check(prewarm_launches >= depth * len(SERVE_BUCKETS) and launches == prewarm_launches,
+          f'serve: {prewarm_launches} flash launches at prewarm, {launches} after serving')
+    check(device_flash > 0 and device_flash == depth * sum(profiled.values()),
+          f'serve: the profiler saw {device_flash} flash kernels for the replays {profiled} '
+          f'of depth {depth}')
+    check(all(replay_equal.values()), f'serve: replay vs eager bit for bit: {replay_equal}')
+    return launches, device_flash, engine
 
 
-def phase_breakdown(model):
-    """Where the time of the served model goes: the forward time per bucket
-    from CUDA events, and the device time of a bucket-64 forward by kernel
-    from torch.profiler, with the device's idle share of the host wall time."""
+def _profile_kernels(fn, reps: int):
+    """Device time by kernel name per call over ``reps`` calls of ``fn``
+    under torch.profiler, and the host wall time per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kernels, counts = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, 'is_user_annotation', False):
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3 / reps
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return kernels, counts, wall_ms
+
+
+def phase_breakdown(engine):
+    """Where the time of the served model goes: per bucket, an eager forward
+    against a replay of its graph (CUDA events), and under torch.profiler
+    the device time of an eager bucket-64 forward by kernel, with the
+    device's idle share of the host wall time, and of a replayed one, which
+    must still run 12 flash kernels."""
+    import torch
+    from timm_tpu_torch.kernels.harness import time_ms
+    res = engine.pool.acquire('vit_base_patch16_224')
+    model, graphs = res.model, engine.aot_executables('vit_base_patch16_224')
     per_bucket = {}
     with torch.inference_mode():
         for b in SERVE_BUCKETS:
             x = torch.from_numpy(_images(b, seed=2)).cuda()
-            ms = time_ms(lambda: model(x), iters=10, warmup=2)
-            per_bucket[str(b)] = {'forward_ms': ms, 'img_per_s': b / ms * 1e3}
+            graphs[b].static_in.copy_(x)
+            eager_ms = time_ms(lambda: model(x), iters=10, warmup=2)
+            replay_ms = time_ms(graphs[b].graph.replay, iters=10, warmup=2)
+            per_bucket[str(b)] = {'forward_ms': eager_ms, 'replay_ms': replay_ms,
+                                  'img_per_s': b / eager_ms * 1e3,
+                                  'replay_img_per_s': b / replay_ms * 1e3}
         x = torch.from_numpy(_images(64, seed=3)).cuda()
         model(x)
         torch.cuda.synchronize()
         reps = 3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                model(x)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3 / reps
+        kernels, _, wall_ms = _profile_kernels(lambda: model(x), reps)
+        graphs[64].static_in.copy_(x)
+        replay_kernels, replay_counts, replay_wall_ms = _profile_kernels(graphs[64].graph.replay, reps)
     busy = sum(kernels.values())
     flash = sum(v for k, v in kernels.items() if 'flash_fwd_kernel' in k)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    replay_busy = sum(replay_kernels.values())
+    replay_flash = sum(c for k, c in replay_counts.items() if 'flash_fwd_kernel' in k) / reps
     emit({'phase': 'breakdown', 'model': 'vit_base_patch16_224', 'dtype': 'bfloat16',
           'per_bucket': per_bucket, 'profiled_batch': 64,
           'wall_ms_per_forward': wall_ms,
@@ -736,7 +697,15 @@ def phase_breakdown(model):
           'device_ms_per_forward': busy if kernels else 'not measured',
           'idle_share': 1.0 - busy / wall_ms if kernels else 'not measured',
           'flash_share_of_device': flash / busy if kernels else 'not measured',
-          'top_kernels': [{'kernel': k[:120], 'ms': v} for k, v in top]})
+          'top_kernels': [{'kernel': k[:120], 'ms': v} for k, v in top],
+          'replay_wall_ms': replay_wall_ms,
+          'replay_device_ms': replay_busy if replay_kernels else 'not measured',
+          'replay_idle_share': 1.0 - replay_busy / replay_wall_ms if replay_kernels else 'not measured',
+          'replay_kernels_per_forward': sum(replay_counts.values()) / reps if replay_kernels
+          else 'not measured',
+          'replay_flash_kernels_per_forward': replay_flash if replay_kernels else 'not measured'})
+    check(not replay_kernels or replay_flash == len(model.blocks),
+          f'breakdown: a replayed bucket-64 forward ran {replay_flash} flash kernels')
 
 
 def _train_task(seed: int, device, dtype, drop_path_rate: float, **task_kw):
@@ -1355,6 +1324,8 @@ def phase_train_breakdown(task, batch):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from timm_tpu_torch.kernels import flash_attention_backward
+    from timm_tpu_torch.kernels.harness import time_ms
+    from timm_tpu_torch.kernels.registry import PEAK_BYTES_PER_S, PEAK_OPS_PER_S
     reps = 3
     task.train_step(batch, lr=1e-5, step=TRAIN_STEPS + 1)
     torch.cuda.synchronize()
@@ -1391,7 +1362,7 @@ def phase_train_breakdown(task, batch):
     # five N x N x D products (scores, dv, dp, dq, dk) in fp32, as JAX does
     nbytes = 7 * q.numel() * 2
     flops = 5 * 2 * TRAIN_BATCH * 12 * 197 * 197 * 64
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_OPS_PER_S['float32'] * 1e3
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
 
     def library_fwd_bwd():
@@ -1433,13 +1404,14 @@ def main() -> int:
     try:
         device = phase_device()
         previous = phase_build()
-        rows = phase_kernels(previous['flash_attention'])
-        adamw_rows = phase_fused_adamw()
-        augment_rows = phase_augment_epilogue(previous['augment_epilogue'])
+        verdicts = phase_kernels()
+        flash_checks = phase_flash_checks(previous['flash_attention'])
+        adamw_rows = phase_fused_adamw_checks()
+        augment_rows = phase_augment_checks(previous['augment_epilogue'])
         phase_model()
-        serve_launches, served_model = phase_serve()
-        phase_breakdown(served_model)
-        del served_model
+        serve_launches, serve_replayed, engine = phase_serve()
+        phase_breakdown(engine)
+        del engine
         train_launches, task, batch, train_step_ms = phase_train()
         phase_train_vs_cpu()
         attn_bwd_ms, attn_bwd_library_ms = phase_train_breakdown(task, batch)
@@ -1450,66 +1422,57 @@ def main() -> int:
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
         return 1
-    # bucket-64 attention; fp32-m AdamW; the epilogue at batch 64 with mixup
-    main_row, adamw_row, augment_row = rows[0], adamw_rows[0], augment_rows[0]
-    emit({'kernels': [{
-        'name': 'flash_attention', 'route': 'cuda',
-        'source': 'timm_tpu_torch/kernels/csrc/flash_attention.cu',
-        'replaces': 'timm_tpu/kernels/flash_attention.py:79',
-        'launches': (serve_launches + train_launches['flash_attention']
-                     + input_launches['flash_attention'] + driver_launches['flash_attention']),
-        'launches_by_path': {'serve': serve_launches, 'train': train_launches['flash_attention'],
-                             'input_train': input_launches['flash_attention'],
-                             'drivers': driver_launches['flash_attention']},
-        # against the plain version; the sharp case's error over its fp64 bound
-        'max_abs_err': max(r['max_abs_err'] for r in rows if r['reference'] == 'plain'),
-        'sharp_error_over_bound': max(r['error_over_bound'] for r in rows
-                                      if r['reference'] != 'plain'),
-        'ms': main_row['kernel_ms'], 'call_ms': main_row['call_ms'],
-        'plain_ms': main_row['plain_ms'],
-        'bound_ms': main_row['bound_ms'], 'bound_by': main_row['bound_by'],
-        'bound_share': main_row['bound_share'], 'library_ms': main_row['library_ms'],
-        'previous_ms': main_row['previous_ms'], 'previous_call_ms': main_row['previous_call_ms'],
-        'previous_source': 'timm_tpu_torch/kernels/csrc/previous/flash_attention.cu',
-        'backward_plain_ms_per_layer': attn_bwd_ms,
-        'backward_library_ms_per_layer': attn_bwd_library_ms,
-    }, {
-        'name': 'fused_adamw', 'route': 'cuda',
-        'source': 'timm_tpu_torch/kernels/csrc/fused_adamw.cu',
-        'replaces': 'timm_tpu/kernels/fused_adamw.py:54',
-        'launches': (train_launches['fused_adamw'] + input_launches['fused_adamw']
-                     + driver_launches['fused_adamw']),
-        'launches_by_path': {'train': train_launches['fused_adamw'],
-                             'input_train': input_launches['fused_adamw'],
-                             'drivers': driver_launches['fused_adamw']},
-        'max_abs_err': max(max(r['max_abs_err'][k] for k in ('p', 'v', 'ema'))
-                           for r in adamw_rows),
-        'ms': adamw_row['kernel_ms'], 'plain_ms': adamw_row['plain_ms'],
-        'bound_ms': adamw_row['bound_ms'], 'bound_by': adamw_row['bound_by'],
-        'bound_share': adamw_row['bound_share'], 'library_ms': adamw_row['library_ms'],
-        # unchanged since it was ported: its previous design is itself
-        'previous_ms': adamw_row['kernel_ms'],
-        'previous_source': 'timm_tpu_torch/kernels/csrc/fused_adamw.cu',
-    }, {
-        'name': 'augment_epilogue', 'route': 'cuda',
-        'source': 'timm_tpu_torch/kernels/csrc/augment_epilogue.cu',
-        'replaces': 'timm_tpu/kernels/augment_epilogue.py:55',
-        'launches': input_launches['augment_epilogue'] + driver_launches['augment_epilogue'],
-        'launches_by_path': {'input_train': input_launches['augment_epilogue'],
-                             'drivers': driver_launches['augment_epilogue']},
-        # fp32 cases; the bf16 cases are held to one bf16 ulp ('within_tol')
-        'max_abs_err': max(r['max_abs_err'] for r in augment_rows if r['out_dtype'] == 'float32'),
-        'bf16_within_one_ulp': all(r['within_tol'] for r in augment_rows
-                                   if r['out_dtype'] == 'bfloat16'),
-        'bit_identical_fp32': all(r['bit_identical'] for r in augment_rows
-                                  if r['out_dtype'] == 'float32'),
-        'ms': augment_row['kernel_ms'], 'call_ms': augment_row['call_ms'],
-        'plain_ms': augment_row['plain_ms'],
-        'bound_ms': augment_row['bound_ms'], 'bound_by': augment_row['bound_by'],
-        'bound_share': augment_row['bound_share'], 'library_ms': None,
-        'previous_ms': augment_row['previous_ms'], 'previous_call_ms': augment_row['previous_call_ms'],
-        'previous_source': 'timm_tpu_torch/kernels/csrc/previous/augment_epilogue.cu',
-    }], 'seconds': time.perf_counter() - t0})
+    launches = {'flash_attention': {'serve': serve_launches,
+                                    'train': train_launches['flash_attention'],
+                                    'input_train': input_launches['flash_attention'],
+                                    'drivers': driver_launches['flash_attention']},
+                'fused_adamw': {'train': train_launches['fused_adamw'],
+                                'input_train': input_launches['fused_adamw'],
+                                'drivers': driver_launches['fused_adamw']},
+                'augment_epilogue': {'input_train': input_launches['augment_epilogue'],
+                                     'drivers': driver_launches['augment_epilogue']}}
+    previous_rows = {'flash_attention': {r['case']: r for r in flash_checks['previous']},
+                     'augment_epilogue': {r['case']: r for r in augment_rows}}
+    lines = []
+    for name, rec in verdicts.items():
+        main = next(c for c in rec['cases'] if c['case'] == MAIN_CASE[name])
+        line = {'name': name, 'route': 'cuda',
+                'source': f'timm_tpu_torch/kernels/csrc/{name}.cu',
+                'replaces': REPLACES[name].split(' ')[0],
+                'launches': sum(launches[name].values()), 'launches_by_path': launches[name],
+                # against the plain version, every registered case, dry and live arms
+                'max_abs_err': rec['parity_max_err'], 'parity_tol': rec['parity_tol'],
+                'verdict': rec['verdict'], 'vs_library': main['vs_library'],
+                'ms': main['kernel_ms'], 'call_ms': main['call_ms'], 'plain_ms': main['plain_ms'],
+                'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
+                'bound_share': main['bound_share'], 'io_bytes': main['io_bytes'],
+                'flops': main['flops'], 'library_ms': main['library_ms'], 'case': main['case']}
+        if name in previous_rows:
+            prev = previous_rows[name][MAIN_CASE[name]]
+            line.update(previous_ms=prev['previous_ms'], previous_call_ms=prev['previous_call_ms'],
+                        previous_source=f'timm_tpu_torch/kernels/csrc/previous/{name}.cu')
+        else:
+            # unchanged since it was ported: its previous design is itself
+            line.update(previous_ms=main['kernel_ms'], previous_source=line['source'])
+        lines.append(line)
+    by_name = {line['name']: line for line in lines}
+    by_name['flash_attention'].update(
+        # every case and arm against the plain version, per element
+        error_over_bound=verdicts['flash_attention']['error_over_bound'],
+        # flash kernels that the profiled serving's replays ran on the card
+        serve_replayed_kernels=serve_replayed,
+        sharp_error_over_bound=flash_checks['sharp_error_over_bound'],
+        backward_plain_ms_per_layer=attn_bwd_ms,
+        backward_library_ms_per_layer=attn_bwd_library_ms)
+    by_name['fused_adamw'].update(
+        clipped_steps_max_abs_err=max(max(r['max_abs_err'][k] for k in ('p', 'v', 'ema'))
+                                      for r in adamw_rows))
+    by_name['augment_epilogue'].update(
+        bf16_within_one_ulp=all(r['within_one_ulp'] for r in augment_rows
+                                if r['out_dtype'] == 'bfloat16'),
+        bit_identical_fp32=all(p['max_abs_err'] == 0.0
+                               for p in verdicts['augment_epilogue']['parity']))
+    emit({'kernels': lines, 'seconds': time.perf_counter() - t0})
     print(device['nvidia_smi'], flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': device['name'],
                                  'count': device['count']}})

@@ -19,6 +19,7 @@ from timm_tpu_torch.data import (
     DeviceAugment, DeviceAugmentStage, Mixup, RandomErasing, augment_image_batch,
 )
 from timm_tpu_torch.kernels import augment_epilogue, augment_epilogue_reference
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H = W = 32
 C, NC = 3, 10

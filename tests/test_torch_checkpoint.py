@@ -36,6 +36,7 @@ from timm_tpu_torch.resilience import (
 )
 from timm_tpu_torch.task import ClassificationTask
 from timm_tpu_torch.utils import CheckpointSaver
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LR = 1e-3
 

@@ -20,6 +20,7 @@ from timm_tpu_torch.data import Mixup, ThreadedLoader, create_loader, resolve_da
 from timm_tpu_torch.data.dataset_factory import create_dataset
 from timm_tpu_torch.data.transforms_factory import create_transform
 from timm_tpu_torch.resilience import TooManyBadSamples
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)

@@ -40,6 +40,7 @@ import sys
 
 import numpy as np
 import pytest
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -13,6 +13,7 @@ import torch
 
 from timm_tpu_torch.kernels import KERNEL_HEAD_DIMS, flash_attention, flash_attention_reference
 from timm_tpu_torch.kernels._build import NVCC_FLAGS, _digest, nvcc_command
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = {'float32': 1e-5, 'bfloat16': 2e-2}
 

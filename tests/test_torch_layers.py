@@ -15,6 +15,7 @@ from timm_tpu_torch.layers import (
 )
 from timm_tpu_torch.models import load_jax_state_dict
 from timm_tpu_torch.models.vision_transformer import Block
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 

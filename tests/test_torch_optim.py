@@ -20,6 +20,7 @@ from timm_tpu_torch.models import load_jax_state_dict
 from timm_tpu_torch.optim import create_optimizer_v2, param_groups_weight_decay
 from timm_tpu_torch.scheduler import create_scheduler_v2
 from timm_tpu_torch.utils import ModelEmaV3, clip_grad_norm, ema_update
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SIZES = ((64, 256), (256,), (8, 8, 32))  # the JAX registry's dry case
 DECAY = (True, False, True)              # a mixed weight-decay mask

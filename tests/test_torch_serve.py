@@ -5,6 +5,7 @@ engine runs test_vit at 32 px with ``device='cpu'``; padded-slot results are
 held against the direct forward and against the JAX model carrying the same
 weights.
 """
+import threading
 import time
 
 import numpy as np
@@ -17,6 +18,7 @@ from timm_tpu_torch.serve import (
     InferenceEngine, RequestQueue, batch_bucket, module_bytes, pad_rows, select_bucket,
     strip_rows, validate_buckets,
 )
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_select_bucket_smallest_fitting():
@@ -197,7 +199,8 @@ def test_eviction_keeps_oversized_model():
 @pytest.mark.gpu
 def test_engine_on_card():
     """The engine on the card: padded slots equal the direct forward, and
-    every step launches the flash kernel once per block."""
+    every step runs the flash kernel once per block (a graph replay: the
+    profiler counts the kernels, the wrapper's count does not move)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     from timm_tpu_torch.kernels import flash_attention
@@ -206,12 +209,211 @@ def test_engine_on_card():
     imgs = np.random.default_rng(4).standard_normal((3, 32, 32, 3)).astype(np.float32)
     before = flash_attention.launches
     eng.start()
+    out = []
     try:
-        rows = np.stack([f.result(timeout=120.0) for f in [eng.submit(im) for im in imgs]])
+        ran = _flash_kernels_run(lambda: out.extend(
+            f.result(timeout=120.0) for f in [eng.submit(im) for im in imgs]))
     finally:
         eng.shutdown(drain=True)
+    rows = np.stack(out)
     model = eng.pool.acquire('test_vit').model
-    assert flash_attention.launches - before == len(model.blocks) * eng.stats['steps']
+    assert flash_attention.launches == before
+    assert ran == len(model.blocks) * eng.stats['steps'] > 0
     with torch.inference_mode():
         direct = model(torch.from_numpy(imgs).cuda()).float().cpu().numpy()
     assert np.linalg.norm(rows - direct) / np.linalg.norm(direct) <= 2e-2
+
+
+# ---- bucket graphs on the card ----------------------------------------------
+
+def _card_engine(buckets=(1, 2, 4), **kw):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eng = InferenceEngine(buckets=buckets, max_wait_ms=5.0, **kw)
+    eng.add_model('test_vit', img_size=32, dtype=torch.bfloat16)
+    return eng
+
+
+def _replay_and_eager(eng, name, bucket, seed):
+    """A seeded batch through the bucket's graph and through an eager
+    forward of the same model."""
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (bucket, 32, 32, 3)).astype(np.float32))
+    res = eng.pool.acquire(name)
+    with torch.inference_mode():
+        replayed = res.compiled[bucket].run(x.pin_memory())
+        eager = res.model(x.cuda()).float()
+    torch.cuda.synchronize()
+    return replayed, eager
+
+
+@pytest.mark.gpu
+def test_bucket_graphs_replay_bit_for_bit_on_card():
+    """One graph per declared bucket, captured at prewarm; each replay
+    equals an eager forward of the same batch bit for bit."""
+    eng = _card_engine()
+    stats = eng.snapshot_stats()['prewarm']['test_vit']
+    assert stats['programs'] == 3 and stats['mode'] == 'graph'
+    assert set(eng.aot_executables('test_vit')) == {1, 2, 4}
+    for bucket in eng.buckets:
+        replayed, eager = _replay_and_eager(eng, 'test_vit', bucket, bucket)
+        assert replayed.shape == (bucket, 1000) and torch.equal(replayed, eager), bucket
+
+
+@pytest.mark.gpu
+def test_undeclared_shape_raises_on_card():
+    eng = _card_engine()
+    graph = eng.aot_executables('test_vit')[4]
+    with pytest.raises(ValueError, match='only declared buckets'):
+        graph.run(torch.zeros(3, 32, 32, 3).pin_memory())
+    eng.start()
+    try:
+        bad = eng.submit(np.zeros((16, 16, 3), np.float32))
+        with pytest.raises(ValueError, match='only declared buckets'):
+            bad.result(timeout=120.0)
+    finally:
+        eng.shutdown(drain=True)
+
+
+def _flash_kernels_run(fn):
+    """Flash kernels the card ran during ``fn()``, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA and 'flash_fwd_kernel' in e.name)
+
+
+@pytest.mark.gpu
+def test_launches_counted_through_replays_on_card():
+    """A replay runs no Python: the wrapper counts the capture's launches
+    only, the engine counts its replays per bucket, and the profiler sees
+    each served replay run the captured flash kernels."""
+    from timm_tpu_torch.kernels import flash_attention
+    eng = _card_engine()
+    depth = len(eng.pool.acquire('test_vit').model.blocks)
+    for graph in eng.aot_executables('test_vit').values():
+        assert graph.launches == {'flash_attention': depth}
+    before = flash_attention.launches
+    rng = np.random.default_rng(0)
+
+    def serve():
+        for burst in (1, 2, 4, 3):
+            futures = [eng.submit(rng.standard_normal((32, 32, 3)).astype(np.float32))
+                       for _ in range(burst)]
+            for f in futures:
+                f.result(timeout=120.0)
+
+    eng.start()
+    try:
+        ran = _flash_kernels_run(serve)
+    finally:
+        eng.shutdown(drain=True)
+    stats = eng.snapshot_stats()
+    assert stats['failed'] == 0 and flash_attention.launches == before
+    assert stats['replays_by_bucket'] == stats['steps_by_bucket']
+    assert ran == depth * sum(stats['replays_by_bucket'].values()) > 0
+
+
+@pytest.mark.gpu
+def test_graph_memory_counted_in_budget_on_card():
+    """The memory a model's graphs keep is measured at prewarm and counted
+    against the pool's budget: a budget that holds two models' parameters
+    but not their graphs keeps one model."""
+    eng = _card_engine()
+    res = eng.pool.acquire('test_vit')
+    static_in = sum(g.static_in.numel() * 4 for g in res.compiled.values())
+    assert res.graph_bytes > static_in
+    assert eng.snapshot_stats()['prewarm']['test_vit']['graph_bytes'] == res.graph_bytes
+    assert eng.pool.resident_bytes() == res.param_bytes + res.graph_bytes
+    eng.add_model('test_vit2', img_size=32, dtype=torch.bfloat16, prewarm=False)
+    eng.pool.budget_bytes = 2 * res.param_bytes + res.graph_bytes // 2
+    eng.pool.acquire('test_vit2')
+    assert eng.pool.resident_names == ('test_vit2',)
+    assert eng.pool.acquire('test_vit2').graph_bytes > static_in
+
+
+@pytest.mark.gpu
+def test_model_added_while_serving_on_card():
+    """A capture holds its own thread only: a model added from the caller's
+    thread while the scheduler serves another is captured, no request
+    fails, and the new model's replays equal its eager forwards."""
+    eng = _card_engine()
+    eng.start()
+    stop, futures = threading.Event(), []
+
+    def submit_loop():
+        rng = np.random.default_rng(0)
+        while not stop.is_set():
+            futures.append(eng.submit(rng.standard_normal((32, 32, 3)).astype(np.float32),
+                                      model='test_vit'))
+            time.sleep(0.0005)
+
+    feeder = threading.Thread(target=submit_loop)
+    feeder.start()
+    try:
+        while len(futures) < 8:
+            time.sleep(0.001)
+        during = len(futures)
+        eng.add_model('test_vit2', img_size=32, dtype=torch.bfloat16, seed=1)
+        assert len(futures) > during  # requests kept coming during the capture
+    finally:
+        stop.set()
+        feeder.join()
+    for f in futures:
+        f.result(timeout=120.0)
+    eng.shutdown(drain=True)
+    assert eng.stats['failed'] == 0 and eng.stats['completed'] == len(futures)
+    assert eng.snapshot_stats()['prewarm']['test_vit2']['programs'] == 3
+    for bucket in eng.buckets:
+        replayed, eager = _replay_and_eager(eng, 'test_vit2', bucket, bucket)
+        assert torch.equal(replayed, eager), bucket
+
+
+@pytest.mark.gpu
+def test_evicted_model_recaptures_and_in_place_load_on_card():
+    """An evicted model's graphs go with it; loaded again, it is captured
+    anew and serves the same logits. Weights loaded in place into a
+    resident model reach its graphs."""
+    eng = _card_engine()
+    eng.add_model('test_vit2', img_size=32, dtype=torch.bfloat16, prewarm=False)
+    first, _ = _replay_and_eager(eng, 'test_vit', 4, 7)
+    graphs = eng.aot_executables('test_vit')
+    eng.pool.budget_bytes = int(1.25 * eng.pool.acquire('test_vit').param_bytes)
+    eng.pool.acquire('test_vit2')
+    assert eng.pool.resident_names == ('test_vit2',)
+    again, eager = _replay_and_eager(eng, 'test_vit', 4, 7)
+    assert eng.pool.stats['evictions'] == 2 and eng.pool.stats['loads'] == 3
+    assert eng.aot_executables('test_vit')[4] is not graphs[4]
+    assert torch.equal(again, first) and torch.equal(again, eager)
+    other = timm_tpu_torch.create_model('test_vit', img_size=32, dtype=torch.bfloat16, seed=1,
+                                        device='cuda')
+    eng.pool.acquire('test_vit').model.load_state_dict(other.state_dict())
+    replayed, eager = _replay_and_eager(eng, 'test_vit', 4, 7)
+    assert torch.equal(replayed, eager) and not torch.equal(replayed, first)
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises_on_card():
+    """On the card the engine never runs a bucket eagerly: a model that
+    cannot be captured fails add_model."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+
+    class Uncapturable(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.net = timm_tpu_torch.create_model('test_vit', img_size=32, device='cuda')
+
+        def forward(self, x):
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError('this forward cannot be captured')
+            return self.net(x)
+
+    eng = InferenceEngine(buckets=(2,))
+    with pytest.raises(RuntimeError, match='cannot be captured'):
+        eng.add_model('test_vit', factory=Uncapturable, input_size=(32, 32, 3))
+    assert eng.pool.resident_names == ()

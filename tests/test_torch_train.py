@@ -37,6 +37,7 @@ from timm_tpu_torch.optim import create_optimizer_v2
 from timm_tpu_torch.resilience import NonFiniteError, NonFiniteSentinel
 from timm_tpu_torch.task import ClassificationTask
 from timm_tpu_torch.utils import clip_scale
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 3
 LR, B1, B2, EPS = 1e-3, 0.9, 0.999, 1e-8

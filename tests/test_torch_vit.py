@@ -14,6 +14,7 @@ import torch
 
 import timm_tpu_torch
 from timm_tpu_torch.models import convert_jax_state_dict, load_jax_state_dict
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _GOLDEN = os.path.join(REPO_ROOT, 'tests', 'fixtures', 'vit_tiny_img64_golden.npz')

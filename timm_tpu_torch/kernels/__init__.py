@@ -1,3 +1,4 @@
+# no-kernel-registry: package init — re-exports, no kernel defined here
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version: flash_attention.py, fused_adamw.py and augment_epilogue.py.
 Sources live in csrc/, builds in build/."""

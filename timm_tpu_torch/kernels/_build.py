@@ -1,3 +1,4 @@
+# no-kernel-registry: infrastructure module — builds and loads the kernels, defines none
 """Build and load the port's CUDA kernels.
 
 Each kernel is one CUDA C++ source under ``csrc/`` with a plain C interface.
@@ -22,7 +23,7 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ['BuiltLibrary', 'find_nvcc', 'load_library', 'nvcc_command']
+__all__ = ['BuiltLibrary', 'find_nvcc', 'load_library', 'loaded_libraries', 'nvcc_command']
 
 _HERE = Path(__file__).resolve().parent
 SOURCE_DIR = _HERE / 'csrc'
@@ -112,3 +113,8 @@ def load_library(name: str, source_dir: Path = SOURCE_DIR) -> BuiltLibrary:
         entry = BuiltLibrary(name, ctypes.CDLL(str(target)), target, built, seconds, log)
         _LIBS[source] = entry
         return entry
+
+
+def loaded_libraries() -> Dict[Path, BuiltLibrary]:
+    """{source: library} of every kernel library this process has loaded."""
+    return dict(_LIBS)

@@ -170,3 +170,90 @@ def augment_epilogue(image: torch.Tensor, lam: torch.Tensor, use_cutmix: torch.T
 
 
 augment_epilogue.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# registry entry: the JAX registry's cases, then the input path's shapes
+
+_STATICS = dict(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225),
+                re_mean=(0.485, 0.456, 0.406))
+
+
+def _registry_inputs(seed: int = 0, device='cuda', batch: int = 8, size: int = 32,
+                     width: Optional[int] = None, erase_k: int = 1, with_mix: bool = True,
+                     with_erase: bool = True, num_classes: int = 10):
+    """The JAX registry's batch, drawn from one numpy generator in its order
+    (image, target, erase boxes, then lam, cutmix flags and boxes), as the
+    kernel takes it: without mixup the identity values lam = 1, no cutmix
+    and zero boxes, without erasing K = 0. ``width`` makes the image
+    ``size`` x ``width`` (the JAX registry's are square)."""
+    rng = np.random.default_rng(seed)
+    b, h, w = batch, size, width or size
+    image = rng.integers(0, 256, (b, h, w, 3)).astype(np.uint8)
+    rng.integers(0, num_classes, (b,))  # the target: drawn to keep the JAX registry's stream
+    boxes = np.zeros((b, erase_k if with_erase else 0, 4), np.int32)
+    for i in range(boxes.shape[0]):
+        for kk in range(boxes.shape[1]):
+            eh, ew = rng.integers(4, h // 2, 2) if width is None else \
+                rng.integers(4, np.array([h // 2, w // 2]))
+            boxes[i, kk] = (rng.integers(0, h - eh), rng.integers(0, w - ew), eh, ew)
+    if with_mix:
+        yl, xl = rng.integers(0, h // 2, (b,)), rng.integers(0, w // 2, (b,))
+        lam = rng.uniform(0.2, 1.0, (b,)).astype(np.float32)
+        cut = rng.integers(0, 2, (b,)).astype(bool)
+        bbox = np.stack([yl, yl + h // 4, xl, xl + w // 4], 1).astype(np.int32)
+    else:
+        lam, cut, bbox = np.ones(b, np.float32), np.zeros(b, np.int32), np.zeros((b, 4), np.int32)
+    return {k: torch.from_numpy(a).to(device) for k, a in
+            dict(image=image, lam=lam, use_cutmix=cut, bbox=bbox, erase_box=boxes).items()}
+
+
+def _registry_flops(image, **_):
+    """About 20 fp32 operations an element (two divisions, the box tests,
+    the blend and the normalise)."""
+    return 20 * image.numel(), 'float32'
+
+
+def _register():
+    from .registry import KernelCase, KernelSpec, register
+    register(KernelSpec(
+        name='augment_epilogue',
+        module=__name__,
+        regime="the device augment stage's 'const'-erase epilogue at loader batch shapes "
+               '(64 or 128 x 224 x 224 x 3 uint8): one read of the image and its mixup '
+               'partner, one normalised write',
+        gate='beat the plain augment program at every declared case on the card, or be '
+             'deleted',
+        parity_tol=1e-6,
+        kernel_fn=augment_epilogue,
+        reference_fn=augment_epilogue_reference,
+        make_inputs=_registry_inputs,
+        flops=_registry_flops,
+        cases=(
+            KernelCase(name='mix_erase',
+                       dry=dict(batch=8, size=32, erase_k=1),
+                       live=dict(batch=128, size=224, erase_k=1), statics=dict(_STATICS),
+                       desc='mixup/cutmix + const erase + normalize (JAX registry)'),
+            KernelCase(name='no_mix',
+                       dry=dict(batch=8, size=32, with_mix=False),
+                       live=dict(batch=128, size=224, with_mix=False), statics=dict(_STATICS),
+                       desc='identity mix: erase + normalize only (JAX registry)'),
+            KernelCase(name='mix_erase_b64',
+                       dry=dict(batch=8, size=32, erase_k=1),
+                       live=dict(batch=64, size=224, erase_k=1), statics=dict(_STATICS),
+                       desc="the input path's batch of 64, the main path"),
+            KernelCase(name='edge_odd_b',
+                       dry=dict(batch=7, size=24, width=21, erase_k=3),
+                       live=dict(batch=63, size=224, width=221, erase_k=3),
+                       statics=dict(_STATICS),
+                       desc='odd batch, W*C not a multiple of 4, 3 boxes'),
+            KernelCase(name='edge_odd_hwc',
+                       dry=dict(batch=7, size=23, width=21, erase_k=3),
+                       live=dict(batch=63, size=223, width=221, erase_k=3),
+                       statics=dict(_STATICS),
+                       desc='H*W*C odd: one byte a thread'),
+        ),
+    ))
+
+
+_register()

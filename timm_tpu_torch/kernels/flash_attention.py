@@ -226,3 +226,128 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None):
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# registry entry: the JAX registry's cases, then the main path's
+
+
+def _registry_inputs(seed: int = 0, device='cuda', batch: int = 2, heads: int = 2,
+                     seq: int = 576, head_dim: int = 64, valid_frac: Optional[float] = 0.8,
+                     valid: Optional[int] = None, dtype: str = 'float32'):
+    """q, k, v as the JAX registry draws them (standard normal times 0.5,
+    from one numpy generator) and a (B, 1, 1, N) key-padding mask: with
+    ``valid``, that many valid keys in every row; else with ``valid_frac``
+    the JAX registry's prefix of int(N * valid_frac) - 8 i keys in row i;
+    with neither, no mask."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shape = (batch, heads, seq, head_dim)
+    q, k, v = (torch.from_numpy((rng.standard_normal(shape) * 0.5).astype(np.float32))
+               .to(device=device, dtype=getattr(torch, dtype)) for _ in range(3))
+    mask = None
+    if valid is not None or valid_frac is not None:
+        rows = [valid if valid is not None else max(1, int(seq * valid_frac) - 8 * i)
+                for i in range(batch)]
+        mask = torch.from_numpy(np.arange(seq)[None, :] < np.asarray(rows)[:, None])
+        mask = mask.view(batch, 1, 1, seq).to(device)
+    return dict(q=q, k=k, v=v, mask=mask)
+
+
+def _registry_flops(q, k, v, mask):
+    """4 N keys D operations per query row (two products), over the keys
+    this mask keeps, in the inputs' type."""
+    B, H, N, D = q.shape
+    keys = B * N if mask is None else int(mask.sum())
+    return 4 * H * N * keys * D, str(q.dtype).replace('torch.', '')
+
+
+# bits of relative precision of the input's type, which the scores (in the
+# plain version), p and the output are rounded to; and what covers
+# ex2.approx, the fp32 sums and second-order terms beyond them
+_PRECISION_BITS = {torch.bfloat16: 8, torch.float16: 11, torch.float32: 24}
+_BOUND_SLACK = 1e-4
+
+
+def _registry_error_bound(out, q, k, v, mask):
+    """How far the kernel may stand from the plain version, per element, to
+    first order. With e = 2^-bits of the input's type: the plain version
+    rounds the scores to that type, each within e/2 of |s|, which moves p
+    by up to e max|s| relative (max over the row's valid keys); both round
+    p, each within e/2 relative, and the output, each within e/2 |o|. So
+    |kernel - plain| <= e ((1 + max|s|) softmax-weighted |v| + |o|) plus
+    the slack. Scaled to each output, it holds the kernel far tighter than
+    the one parity_tol, which at the long masked cases is about the size of
+    a typical output."""
+    qf, kf = q.float(), k.float()
+    s = (qf * q.shape[-1] ** -0.5) @ kf.transpose(-2, -1)
+    if mask is not None:
+        s = s.masked_fill(~mask, 0.0)
+    s_max = s.abs().amax(dim=-1, keepdim=True)
+    del s
+    pv_abs = flash_attention_reference(qf, kf, v.float().abs(), mask=mask)
+    return 2.0 ** -_PRECISION_BITS[q.dtype] * ((1 + s_max) * pv_abs + out.float().abs()) \
+        + _BOUND_SLACK
+
+
+def _registry_library(q, k, v, mask):
+    import torch.nn.functional as F
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def _register():
+    from .registry import KernelCase, KernelSpec, register
+    vit = dict(heads=12, seq=197, head_dim=64, valid_frac=None)
+    register(KernelSpec(
+        name='flash_attention',
+        module=__name__,
+        regime='every attention of the port on the card: ViT-B/16 serving buckets (N 197, '
+               'D 64, bf16 or fp16) and key-padding-masked N in {256, 576, 784, 1024}',
+        gate='beat the plain attention at every declared case on the card, or be deleted; '
+             'the library call is timed beside it and decides nothing',
+        parity_tol=2e-2,
+        kernel_fn=flash_attention,
+        reference_fn=flash_attention_reference,
+        make_inputs=_registry_inputs,
+        flops=_registry_flops,
+        library_fn=_registry_library,
+        error_bound=_registry_error_bound,
+        cases=(
+            KernelCase(name='masked_n576',
+                       dry=dict(batch=2, heads=2, seq=576, head_dim=64),
+                       live=dict(batch=16, heads=12, seq=576, head_dim=64, dtype='bfloat16'),
+                       desc='NaFlex 384px/16 packed bucket (JAX registry)'),
+            KernelCase(name='masked_n784',
+                       dry=dict(batch=1, heads=2, seq=784, head_dim=64),
+                       live=dict(batch=16, heads=12, seq=784, head_dim=64, dtype='bfloat16'),
+                       desc='NaFlex 448px/16 packed bucket (JAX registry)'),
+            KernelCase(name='masked_n1024',
+                       dry=dict(batch=1, heads=1, seq=1024, head_dim=64),
+                       live=dict(batch=16, heads=12, seq=1024, head_dim=64, dtype='bfloat16'),
+                       desc='NaFlex max packed bucket (JAX registry)'),
+            KernelCase(name='vit_b16_bucket64',
+                       dry=dict(batch=2, heads=2, seq=197, head_dim=64, valid_frac=None,
+                                dtype='bfloat16'),
+                       live=dict(batch=64, **vit, dtype='bfloat16'),
+                       desc='ViT-B/16 serving bucket 64, the main path'),
+            KernelCase(name='vit_b16_bucket64_fp16',
+                       dry=dict(batch=2, heads=2, seq=197, head_dim=64, valid_frac=None,
+                                dtype='float16'),
+                       live=dict(batch=64, **vit, dtype='float16'),
+                       desc='the same in fp16'),
+            KernelCase(name='vit_b16_bucket1',
+                       dry=dict(batch=1, heads=2, seq=197, head_dim=64, valid_frac=None,
+                                dtype='bfloat16'),
+                       live=dict(batch=1, **vit, dtype='bfloat16'),
+                       desc='serving bucket 1: a grid under one wave of blocks'),
+            KernelCase(name='keypad_n256',
+                       dry=dict(batch=2, heads=2, seq=256, head_dim=64, valid=197,
+                                dtype='bfloat16'),
+                       live=dict(batch=64, heads=12, seq=256, head_dim=64, valid=197,
+                                 dtype='bfloat16'),
+                       desc='197 tokens padded to 256 with a key-padding mask'),
+        ),
+    ))
+
+
+_register()

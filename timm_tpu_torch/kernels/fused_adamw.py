@@ -180,3 +180,143 @@ def fused_adamw(p, g, m, v, ema, count, *, lr: float, b1: float = 0.9, b2: float
 
 
 fused_adamw.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# registry entry: the JAX registry's cases, then ViT-B/16's leaf set
+
+_ALIGN = 4  # elements: the optimizer starts every leaf on a 16-byte boundary
+
+
+@functools.cache
+def _model_leaves(name: str):
+    """(shape, takes weight decay) of each parameter of the port's model
+    ``name``, in ``named_parameters`` order, with the optimizer's mask."""
+    from ..models import create_model
+    from ..optim import param_groups_weight_decay
+    model = create_model(name, device='cpu')
+    mask = param_groups_weight_decay(model)
+    return tuple((tuple(p.shape), mask[n]) for n, p in model.named_parameters())
+
+
+def _registry_inputs(seed: int = 0, device='cuda', sizes=((64, 256), (256,), (8, 8, 32)),
+                     decay=None, model: Optional[str] = None, mu_dtype=None):
+    """The JAX registry's state at step 3, drawn from one numpy generator
+    in its order (m, v, p, g, ema, leaf by leaf), laid out as the optimizer
+    lays it out: flat buffers, leaves that take decay first (``decay``, all
+    by default; ``model`` takes its leaf set and mask), each padded to 4
+    elements."""
+    if model is not None:
+        sizes, decay = zip(*_model_leaves(model))
+    decay = tuple(decay) if decay is not None else (True,) * len(sizes)
+    order = [i for i in range(len(sizes)) if decay[i]] + [i for i in range(len(sizes)) if not decay[i]]
+    slots, offset, n_decay = {}, 0, 0
+    for i in order:
+        slots[i] = offset
+        offset += -(-int(np.prod(sizes[i])) // _ALIGN) * _ALIGN
+        if decay[i]:
+            n_decay = offset
+    rng = np.random.default_rng(seed)
+
+    def flat(scale, post=None):
+        out = np.zeros(offset, np.float32)
+        for i, s in enumerate(sizes):
+            x = (rng.standard_normal(s) * scale).astype(np.float32).ravel()
+            out[slots[i]:slots[i] + x.size] = x if post is None else post(x)
+        return torch.from_numpy(out).to(device)
+
+    m = flat(0.01)
+    if mu_dtype is not None:
+        m = m.to(getattr(torch, mu_dtype))
+    v = flat(0.1, lambda x: np.abs(x) * np.float32(1e-3))
+    p, g, ema = flat(1.0), flat(0.1), flat(1.0)
+    count = torch.tensor(3, dtype=torch.int32, device=device)
+    return dict(p=p, g=g, m=m, v=v, ema=ema, count=count, lr=0.02, ema_decay=0.999,
+                n_decay=n_decay)
+
+
+def _functional(step):
+    """The in-place update as a function: it updates copies of p, m, v, ema
+    and the count and returns (p, m, v, ema)."""
+    def fn(p, g, m, v, ema, count, **kw):
+        p, m, v, ema, count = (t.clone() for t in (p, m, v, ema, count))
+        step(p, g, m, v, ema, count, **kw)
+        return p, m, v, ema
+    return fn
+
+
+def _registry_flops(p, **_):
+    """About 20 fp32 operations an element (the moments, the bias-corrected
+    step, decay, the update and the EMA)."""
+    return 20 * p.numel(), 'float32'
+
+
+def _registry_library(p, g, m, v, ema, count, *, lr, ema_decay, n_decay, weight_decay=0.0,
+                      b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    """torch's fused AdamW over the decay and no-decay groups of copies of
+    the buffers, then the EMA lerp; it rounds differently (eps and decay
+    order), so it is timed only. None for a bf16 m, which it cannot hold."""
+    if m.dtype != torch.float32:
+        return None
+    groups, params, emas = [], [], []
+    for part, wd in ((slice(0, n_decay), weight_decay), (slice(n_decay, None), 0.0)):
+        if p[part].numel():
+            t = torch.nn.Parameter(p[part].clone())
+            t.grad = g[part].clone()
+            params.append(t)
+            groups.append({'params': [t], 'weight_decay': wd})
+            emas.append(ema[part].clone())
+    opt = torch.optim.AdamW(groups, lr=lr, betas=(b1, b2), eps=eps, fused=True, capturable=True)
+
+    def library_step():
+        opt.step()
+        torch._foreach_lerp_(emas, params, 1 - ema_decay)
+    return library_step
+
+
+def _register():
+    from .registry import KernelCase, KernelSpec, register
+    mixed = dict(sizes=((64, 256), (256,), (8, 8, 32)), decay=(True, False, True))
+    register(KernelSpec(
+        name='fused_adamw',
+        module=__name__,
+        regime='the AdamW + EMA update of every train step on the card: fp32 p, g, v and '
+               'ema with an fp32 or bf16 m, streamed once (36 bytes a parameter with an '
+               'fp32 m) at ViT-B/16 scale',
+        gate='beat the plain update at every declared case on the card, or be deleted; '
+             'torch.optim.AdamW(fused=True) + _foreach_lerp_ is timed beside it',
+        parity_tol=1e-6,
+        kernel_fn=_functional(fused_adamw),
+        reference_fn=_functional(fused_adamw_reference),
+        kernel_step=fused_adamw,
+        reference_step=fused_adamw_reference,
+        make_inputs=_registry_inputs,
+        flops=_registry_flops,
+        library_fn=_registry_library,
+        cases=(
+            KernelCase(name='fp32',
+                       dry=dict(sizes=((64, 256), (256,), (8, 8, 32))),
+                       live=dict(sizes=((1024, 4096), (4096, 1024), (1024, 1024), (1024,),
+                                        (197, 1024))),
+                       statics=dict(weight_decay=0.05),
+                       desc='fp32 moments, decayed leaves (JAX registry)'),
+            KernelCase(name='mu_bf16',
+                       dry=dict(sizes=((64, 256), (256,)), mu_dtype='bfloat16'),
+                       live=dict(sizes=((1024, 4096), (4096, 1024), (1024, 1024)),
+                                 mu_dtype='bfloat16'),
+                       statics=dict(weight_decay=0.05),
+                       desc='bf16 first moment (JAX registry)'),
+            KernelCase(name='vit_b16',
+                       dry=mixed, live=dict(model='vit_base_patch16_224'),
+                       statics=dict(weight_decay=0.05),
+                       desc="ViT-B/16's leaf set and decay mask, the train step's update"),
+            KernelCase(name='vit_b16_mu_bf16',
+                       dry=dict(mixed, mu_dtype='bfloat16'),
+                       live=dict(model='vit_base_patch16_224', mu_dtype='bfloat16'),
+                       statics=dict(weight_decay=0.05),
+                       desc='the same with a bf16 first moment'),
+        ),
+    ))
+
+
+_register()

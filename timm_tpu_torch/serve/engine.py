@@ -7,9 +7,33 @@
     expires, so no request starves waiting for batch-mates.
   * Every admitted run is padded to the smallest fitting bucket, and the
     engine asserts that only declared buckets dispatch, so the kernels see a
-    fixed family of shapes. Each bucket runs one forward at ``add_model``
-    (the prewarm, timed in ``stats['prewarm']``): the first request of a
-    bucket pays no first-call cost (kernel build, cuBLAS and cuDNN setup).
+    fixed family of shapes.
+  * **One CUDA graph per (model, bucket)**, captured at ``add_model`` (the
+    prewarm, timed in ``stats['prewarm']``): the counterpart of the JAX
+    engine's AOT bucket executables. Each bucket gets a static input
+    buffer; warm-up forwards on a side stream build the kernels and create
+    cuBLAS's handles and workspaces; then one forward is captured, into a
+    memory pool that the buckets of a model share. A step copies its padded
+    batch into the bucket's static input, replays the graph and clones the
+    static output, all on the stream that replays, so a second step of the
+    bucket in flight cannot overwrite the first's output before its clone.
+    One replay is one launch for the whole forward. A shape outside the
+    captured ones raises, as an AOT executable does. A replay runs no
+    Python, so the kernels' launch counters move at capture only; each
+    graph records what its capture launched (``BucketGraph.launches``, the
+    kernels one replay runs) and the engine counts replays per bucket
+    (``stats['replays_by_bucket']``). A capture holds its own thread only
+    (``capture_error_mode='thread_local'``), so a model may be added from
+    the caller's thread while the scheduler serves. The memory the graphs
+    keep (their pool and static inputs) is measured at prewarm and counted
+    in the model's bytes against the pool's budget. The graphs hold the
+    weights' device addresses and live and die with the
+    :class:`~timm_tpu_torch.serve.residency.ResidentModel`: an evicted
+    model is captured anew when it is loaded again, and weights loaded into
+    a resident model must be copied in place (``load_state_dict``, as
+    ``load_jax_state_dict`` does). A capture that fails raises: on the card
+    the engine never runs a bucket eagerly. With ``device='cpu'`` the
+    engine stays eager, and its prewarm runs one forward per bucket.
   * Up to ``transfer_depth`` steps are in flight: a batch is uploaded from
     pinned host memory with ``non_blocking=True`` and its forward is queued
     while the device still runs the previous one; a step retires when its
@@ -17,9 +41,9 @@
   * Several models stay resident through a memory-budgeted LRU
     :class:`~timm_tpu_torch.serve.residency.ModelPool`.
 
-The engine runs on ``cuda`` unless built with ``device='cpu'``. Its forward
-passes run under ``torch.inference_mode()``, set inside the scheduler thread
-because grad mode is thread-local.
+The engine runs on ``cuda`` unless built with ``device='cpu'``. Its
+forward passes, captures and replays run under ``torch.inference_mode()``,
+set inside the scheduler thread because grad mode is thread-local.
 """
 from __future__ import annotations
 
@@ -33,6 +57,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..kernels import _build, registry
 from .bucketing import DEFAULT_BUCKETS, pad_rows, select_bucket, strip_rows, validate_buckets
 from .queueing import RequestQueue, ServeFuture
 from .residency import ModelPool, ResidentModel
@@ -40,6 +65,36 @@ from .residency import ModelPool, ResidentModel
 _logger = logging.getLogger(__name__)
 
 __all__ = ['InferenceEngine']
+
+
+def _pool_bytes(pool) -> int:
+    """Device bytes of the caching allocator's segments that belong to the
+    graph memory pool ``pool`` (its id is unique in the process)."""
+    return sum(seg['total_size'] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg['segment_pool_id']) == tuple(pool))
+
+
+class BucketGraph:
+    """One captured forward of a model at one bucket: the graph, its static
+    input and output, and the kernel launches its capture counted, which
+    are the kernels one replay runs."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, static_in: torch.Tensor,
+                 static_out: torch.Tensor, launches: Dict[str, int]):
+        self.graph = graph
+        self.static_in = static_in
+        self.static_out = static_out
+        self.launches = launches
+
+    def run(self, x: torch.Tensor) -> torch.Tensor:
+        """Copy ``x`` (pinned host or device memory) into the static input,
+        replay and return a clone of the output, on the current stream."""
+        if tuple(x.shape) != tuple(self.static_in.shape):
+            raise ValueError(f'Input shape {tuple(x.shape)} is not the captured '
+                             f'{tuple(self.static_in.shape)}: only declared buckets run')
+        self.static_in.copy_(x, non_blocking=True)
+        self.graph.replay()
+        return self.static_out.clone()
 
 
 class _Inflight:
@@ -83,7 +138,7 @@ class InferenceEngine:
         self._started = False
         self.stats: Dict = {
             'submitted': 0, 'completed': 0, 'failed': 0, 'steps': 0,
-            'padded_slots': 0, 'steps_by_bucket': Counter(),
+            'padded_slots': 0, 'steps_by_bucket': Counter(), 'replays_by_bucket': Counter(),
             'request_sizes': Counter(),   # dispatched-batch size histogram
             'prewarm': {}, 'max_inflight': 0,
         }
@@ -111,21 +166,63 @@ class InferenceEngine:
         return res.model(x).float()
 
     def _prewarm(self, res: ResidentModel) -> None:
-        """One forward per declared bucket for a freshly loaded model, timed
-        to completion on the device."""
+        """Every declared bucket of a freshly loaded model, timed to
+        completion on the device: on cuda its graph is captured; on the CPU
+        one eager forward runs. ``cache_hits`` and ``fresh_compiles`` count
+        the kernel libraries loaded during the prewarm that were already
+        built and that ``nvcc`` built. ``graph_bytes`` is the device memory
+        the graphs keep: their pool's segments and the static inputs."""
         h, w, c = res.input_size
         bucket_ms = {}
+        loaded = set(_build.loaded_libraries())
         t0 = time.perf_counter()
         with torch.inference_mode():
+            pool = torch.cuda.graph_pool_handle() if self.device.type == 'cuda' else None
             for bucket in self.buckets:
                 tb = time.perf_counter()
                 x = torch.zeros((bucket, h, w, c), device=self.device)
-                self._run(res, x).cpu()
+                if pool is None:
+                    self._run(res, x).cpu()
+                else:
+                    res.compiled[bucket] = self._capture(res, x, pool)
                 bucket_ms[bucket] = (time.perf_counter() - tb) * 1e3
-        stats = {'programs': len(self.buckets), 'ms': (time.perf_counter() - t0) * 1e3,
-                 'bucket_ms': bucket_ms}
+            if pool is not None:
+                torch.cuda.synchronize(self.device)
+                res.graph_bytes = _pool_bytes(pool) + sum(
+                    g.static_in.numel() * g.static_in.element_size() for g in res.compiled.values())
+        new = [lib for key, lib in _build.loaded_libraries().items() if key not in loaded]
+        stats = {'programs': len(res.compiled) if pool is not None else len(self.buckets),
+                 'mode': 'graph' if pool is not None else 'eager',
+                 'ms': (time.perf_counter() - t0) * 1e3, 'bucket_ms': bucket_ms,
+                 'graph_bytes': res.graph_bytes,
+                 'cache_hits': sum(not lib.built for lib in new),
+                 'fresh_compiles': sum(lib.built for lib in new)}
         res.prewarm_stats.update(stats)
         self.stats['prewarm'][res.name] = stats
+
+    def _capture(self, res: ResidentModel, static_in: torch.Tensor, pool) -> BucketGraph:
+        """Warm up on a side stream, then capture one forward into ``pool``.
+        The capture forbids unsafe CUDA calls on this thread only, so the
+        scheduler thread may go on retiring steps meanwhile."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self._run(res, static_in)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        counters = registry.launch_counters()
+        before = {name: fn.launches for name, fn in counters.items()}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode='thread_local'):
+            static_out = self._run(res, static_in)
+        launches = {name: fn.launches - before[name] for name, fn in counters.items()
+                    if fn.launches != before[name]}
+        return BucketGraph(graph, static_in, static_out, launches)
+
+    def aot_executables(self, model: str) -> Dict[int, BucketGraph]:
+        """bucket -> captured graph of ``model`` while it is resident (empty
+        on the CPU, where the engine runs eagerly)."""
+        return dict(self.pool.acquire(model).compiled)
 
     # -- request path ---------------------------------------------------------
 
@@ -204,10 +301,12 @@ class InferenceEngine:
                 f'batch shape {x.shape[0]} outside declared buckets {self.buckets}'
             x_host = torch.from_numpy(x)
             if self.device.type == 'cuda':
-                x_host = x_host.pin_memory()
-            # asynchronous upload from pinned memory: overlaps the running step
-            x_dev = x_host.to(self.device, non_blocking=True)
-            out = self._run(res, x_dev)
+                # asynchronous upload from pinned memory, then the replay,
+                # on one stream: overlaps the running step
+                out = res.compiled[bucket].run(x_host.pin_memory())
+                self.stats['replays_by_bucket'][bucket] += 1
+            else:
+                out = self._run(res, x_host)
             self._inflight.append(_Inflight(out, requests))
             self.stats['steps'] += 1
             self.stats['steps_by_bucket'][bucket] += 1
@@ -242,6 +341,7 @@ class InferenceEngine:
         """Point-in-time copy of engine and pool counters."""
         out = dict(self.stats)
         out['steps_by_bucket'] = dict(self.stats['steps_by_bucket'])
+        out['replays_by_bucket'] = dict(self.stats['replays_by_bucket'])
         out['request_sizes'] = dict(self.stats['request_sizes'])
         out['pool'] = dict(self.pool.stats)
         out['resident'] = list(self.pool.resident_names)

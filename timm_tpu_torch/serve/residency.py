@@ -4,9 +4,12 @@
 The pool builds models lazily from registered factories, moves them to its
 ``torch.device`` in eval mode with gradients off, hands each new resident to
 the engine's prewarm hook, and evicts the least-recently-used resident when
-the budget would be exceeded. A model's bytes are counted from its
-parameters and buffers. A single model larger than the whole budget is kept
-with a warning rather than evicted in a loop.
+the budget would be exceeded. A model's bytes are its parameters and
+buffers plus what its prewarm keeps on the device (``graph_bytes``: the
+engine's captured graphs). Before a load the pool makes room for the
+parameters and for what the model's last prewarm kept; after the prewarm
+it makes room for what this one measured. A single model larger than the
+whole budget is kept with a warning rather than evicted in a loop.
 """
 from __future__ import annotations
 
@@ -38,8 +41,14 @@ class ResidentModel:
         self.name = name
         self.model = model
         self.param_bytes = int(param_bytes)
+        self.graph_bytes = 0  # device memory the prewarm keeps (captured graphs)
         self.input_size = input_size  # (H, W, C) the warmed buckets expect
         self.prewarm_stats: Dict[str, object] = {}
+        self.compiled: Dict[int, object] = {}  # bucket -> captured graph (cuda)
+
+    @property
+    def nbytes(self) -> int:
+        return self.param_bytes + self.graph_bytes
 
 
 class ModelPool:
@@ -58,6 +67,7 @@ class ModelPool:
         self.prewarm_fn = prewarm_fn
         self._factories: Dict[str, Tuple[Callable[[], nn.Module], Optional[Tuple[int, int, int]]]] = {}
         self._resident: 'OrderedDict[str, ResidentModel]' = OrderedDict()
+        self._graph_bytes: Dict[str, int] = {}  # what each model's last prewarm kept
         self._lock = threading.RLock()
         self.stats = {'loads': 0, 'evictions': 0, 'hits': 0}
 
@@ -78,7 +88,7 @@ class ModelPool:
 
     def resident_bytes(self) -> int:
         with self._lock:
-            return sum(r.param_bytes for r in self._resident.values())
+            return sum(r.nbytes for r in self._resident.values())
 
     def acquire(self, name: str) -> ResidentModel:
         with self._lock:
@@ -101,14 +111,16 @@ class ModelPool:
             chw = cfg.get('input_size') or (3, 224, 224)
             input_size = (int(chw[1]), int(chw[2]), int(chw[0]))  # CHW cfg -> HWC input
         nbytes = module_bytes(model)
-        self._evict_to_fit(nbytes, loading=name)
+        self._evict_to_fit(nbytes + self._graph_bytes.get(name, 0), loading=name)
         res = ResidentModel(name, model, nbytes, tuple(int(s) for s in input_size))
         res.prewarm_stats['load_ms'] = (time.perf_counter() - t0) * 1e3
         if self.prewarm_fn is not None:
             self.prewarm_fn(res)
+            self._graph_bytes[name] = res.graph_bytes
+            self._evict_to_fit(res.nbytes, loading=name)
         self._resident[name] = res
         self.stats['loads'] += 1
-        _logger.info(f'serve pool: loaded {name} ({nbytes / 1e6:.1f} MB, '
+        _logger.info(f'serve pool: loaded {name} ({res.nbytes / 1e6:.1f} MB, '
                      f'{len(self._resident)} resident on {self.device})')
         return res
 
@@ -122,5 +134,5 @@ class ModelPool:
         while self._resident and self.resident_bytes() + incoming_bytes > self.budget_bytes:
             victim, res = self._resident.popitem(last=False)  # LRU order
             self.stats['evictions'] += 1
-            _logger.info(f'serve pool: evicted {victim} ({res.param_bytes / 1e6:.1f} MB) '
+            _logger.info(f'serve pool: evicted {victim} ({res.nbytes / 1e6:.1f} MB) '
                          f'to fit {loading} within the {self.budget_bytes / 1e6:.1f} MB budget')
