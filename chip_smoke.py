@@ -10,9 +10,14 @@ nvcc per source, side by side), holds each kernel against its plain PyTorch
 version on the card, checks ViT-B/16 in bf16 on the card against the same
 weights in fp32 on the CPU, serves ViT-B/16 through the port's
 InferenceEngine, trains ViT-B/16 through the port's ClassificationTask
-(AdamW through the fused AdamW + EMA kernel) on one fixed batch, with its
-gradients checked against the CPU in fp32 and a profiler breakdown of the
-train step, and trains it again from a folder of seeded PNGs through the
+(AdamW through the fused AdamW + EMA kernel; the step a CUDA graph from its
+second call on, the counterpart of JAX's jitted step) on one fixed batch,
+with its gradients checked against the CPU in fp32 and a profiler breakdown
+of the train step, holds the replayed train step against its eager body bit
+for bit (phase ``train_graph``: AdamW, accumulation 2 and SGD over 20 steps
+with lr and EMA decay changing every step and a skipped non-finite step;
+eager against replayed step ms and idle share; the eval graph against the
+eager forward), and trains it again from a folder of seeded PNGs through the
 port's input path (threaded loader, CUDA-stream prefetcher, mixup, cutmix
 and erasing sampled on the host, the augment-epilogue kernel). Last, phase
 ``drivers`` runs the port's command-line drivers through their
@@ -39,7 +44,9 @@ engine serves every bucket by replaying the CUDA graph it captured at
 ``add_model``; phase ``serve`` checks under torch.profiler that each
 replay ran the captured flash kernels, and holds each replay bit for bit
 against an eager forward; phase ``breakdown`` times eager forwards against
-replays per bucket. Each phase prints one JSON line; then come the kernel
+replays per bucket. A replay runs no Python, so the kernel wrappers' launch
+counters move at a graph's warm-up and capture only: the train phases and
+run C of ``drivers`` count what the replays ran under the profiler. Each phase prints one JSON line; then come the kernel
 summary line, the card's name and power limit as nvidia-smi gives them,
 and the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line; with no CUDA device, or outside the repository, it exits
@@ -304,6 +311,39 @@ def _sharp_excess(out, oracle, dtype):
     return float(diff.max()), float((diff / bound).max())
 
 
+def _fully_masked_rows(tol: float):
+    """A batch row whose keys are all masked, at ViT-B/16's N = 197 and at
+    N = 37, in bf16, fp16 and fp32 (B 3, H 12, D 64; row 1 all masked, row
+    2 half): the kernel gives the TPU kernel's sum(v) / round_up(N,
+    block_k), within ``tol`` (1e-5 in fp32) of the plain version, which
+    gives the same, on every row."""
+    import torch
+    from timm_tpu_torch.kernels import flash_attention, flash_attention_reference, tpu_key_slots
+    out = {}
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for n in (37, 197):
+            g = torch.Generator(device='cuda').manual_seed(n)
+            q, k, v = (torch.randn(3, 12, n, 64, generator=g, device='cuda').to(dtype)
+                       for _ in range(3))
+            v = v + 1  # a mean far from 0, so sum / slots and the mean differ
+            mask = torch.ones(3, n, dtype=torch.bool, device='cuda')
+            mask[1] = False
+            mask[2, n // 2:] = False
+            with torch.inference_mode():
+                got = flash_attention(q, k, v, mask=mask).float()
+                plain = flash_attention_reference(q, k, v, mask=mask.view(3, 1, 1, n)).float()
+            want = v[1].float().sum(dim=-2, keepdim=True) / tpu_key_slots(n)
+            name = str(dtype).replace('torch.', '')
+            out[f'{name}_n{n}'] = {
+                'max_abs_err_vs_plain': float((got - plain).abs().max()),
+                'masked_row_max_abs_err_vs_tpu_value': float((got[1] - want).abs().max()),
+                'slots': tpu_key_slots(n)}
+            t = 1e-5 if dtype == torch.float32 else tol
+            check(all(e <= t for e in list(out[f'{name}_n{n}'].values())[:2]),
+                  f'fully masked row, {name} N {n}: {out[f"{name}_n{n}"]} (tol {t})')
+    return out
+
+
 def phase_flash_checks(previous_lib):
     """What the harness does not hold the flash kernel to: the sharp-score
     case (score std 4, the running max changes from key tile to key tile)
@@ -324,6 +364,7 @@ def phase_flash_checks(previous_lib):
     sharp_err, sharp_excess = _sharp_excess(out, oracle, 'bfloat16')
     previous_sharp_err, previous_sharp_excess = _sharp_excess(previous_out, oracle, 'bfloat16')
     del q, k, v, mask, out, previous_out, oracle
+    masked_rows = _fully_masked_rows(tol)
     rows = []
     for case in spec.cases:
         inputs = spec.make_inputs(seed=0, device='cuda', **case.live)
@@ -351,7 +392,8 @@ def phase_flash_checks(previous_lib):
            'sharp_tol': f'2^-{SHARP_PRECISION_BITS["bfloat16"]} (softmax-weighted |v| + |o|) '
                         f'+ {SHARP_SLACK} per element',
            'previous_sharp_error_over_bound': previous_sharp_excess,
-           'previous_sharp_max_abs_err': previous_sharp_err, 'previous': rows}
+           'previous_sharp_max_abs_err': previous_sharp_err, 'previous': rows,
+           'fully_masked_rows': masked_rows}
     emit(row)
     check(sharp_excess <= 1.0, f'sharp case: kernel error {sharp_excess} times its fp64 bound')
     check(previous_sharp_excess <= 1.0,
@@ -379,18 +421,21 @@ def phase_fused_adamw_checks():
     m0 = torch.randn(n, generator=gen, device='cuda').mul_(1e-4)
     v0 = torch.rand(n, generator=gen, device='cuda').mul_(1e-6)  # ~g^2 for |g| ~ 1e-3
     scale = torch.tensor(0.5, device='cuda')
-    kw = dict(lr=1e-3, n_decay=n_decay, grad_scale=scale, **ADAMW_HP)
+    # lr and the EMA decay read from device memory, changed every step
+    lr_t, decay_t = torch.zeros((), device='cuda'), torch.zeros((), device='cuda')
+    kw = dict(lr=lr_t, ema_decay=decay_t, n_decay=n_decay, grad_scale=scale, **ADAMW_HP)
     rows = []
     for mu in (torch.float32, torch.bfloat16):
         state = {side: [p0.clone(), m0.to(mu, copy=True), v0.clone(), p0.clone(),
                         torch.zeros((), dtype=torch.int32, device='cuda')]
                  for side in ('kernel', 'plain')}
         for step in range(3):
-            d = 0.0 if step == 0 else 0.9998
+            lr_t.fill_((1e-3, 3e-4, 2e-3)[step])
+            decay_t.fill_((0.0, 0.9, 0.9998)[step])
             kp, km, kv, ke, kc = state['kernel']
-            fused_adamw(kp, grads[step], km, kv, ke, kc, ema_decay=d, **kw)
+            fused_adamw(kp, grads[step], km, kv, ke, kc, **kw)
             rp, rm, rv, re, rc = state['plain']
-            fused_adamw_reference(rp, grads[step], rm, rv, re, rc, ema_decay=d, **kw)
+            fused_adamw_reference(rp, grads[step], rm, rv, re, rc, **kw)
         torch.cuda.synchronize()
         k, r = state['kernel'], state['plain']
         errs = {name: float((k[i].float() - r[i].float()).abs().max())
@@ -420,7 +465,8 @@ def phase_fused_adamw_checks():
         check(m_ok, f'fused_adamw {mu}: m off by more than its tolerance ({errs["m"]})')
         check(nan_step_kept, f'fused_adamw {mu}: a NaN step changed the state')
         del state, k, r, keep
-    emit({'phase': 'kernels', 'kernel': 'fused_adamw', 'check': '3 clipped steps and a NaN step',
+    emit({'phase': 'kernels', 'kernel': 'fused_adamw',
+          'check': '3 clipped steps, lr and EMA decay from device memory, and a NaN step',
           'cases': rows})
     del model, opt, p0, grads, m0, v0
     torch.cuda.empty_cache()
@@ -708,12 +754,13 @@ def phase_breakdown(engine):
           f'breakdown: a replayed bucket-64 forward ran {replay_flash} flash kernels')
 
 
-def _train_task(seed: int, device, dtype, drop_path_rate: float, **task_kw):
+def _train_task(seed: int, device, dtype, drop_path_rate: float, opt: str = 'adamw', **task_kw):
     import timm_tpu_torch
     from timm_tpu_torch.loss import LabelSmoothingCrossEntropy
     model = timm_tpu_torch.create_model('vit_base_patch16_224', dtype=dtype, seed=seed,
                                         drop_path_rate=drop_path_rate, device=device)
-    opt = timm_tpu_torch.create_optimizer_v2(model, opt='adamw', lr=TRAIN_LR, weight_decay=0.05)
+    opt = timm_tpu_torch.create_optimizer_v2(model, opt=opt, lr=TRAIN_LR, weight_decay=0.05,
+                                             **({'momentum': 0.9} if opt == 'sgd' else {}))
     return timm_tpu_torch.ClassificationTask(
         model, optimizer=opt, train_loss_fn=LabelSmoothingCrossEntropy(0.1), seed=seed, **task_kw)
 
@@ -725,11 +772,23 @@ def _train_batch(n: int, seed: int, device):
             'target': torch.from_numpy(labels).to(device)}
 
 
+def _per_step(counts, steps: int):
+    """Kernels a step ran, by the three kernels' names, from the profiler's
+    counts over ``steps`` steps."""
+    names = {'flash_attention': 'flash_fwd_kernel', 'fused_adamw': 'fused_adamw_kernel',
+             'augment_epilogue': 'augment_epilogue_kernel'}
+    return {k: sum(c for name, c in counts.items() if pat in name) / steps
+            for k, pat in names.items()}
+
+
 def phase_train():
     """The port's training path: ClassificationTask trains ViT-B/16 (bf16
     compute, fp32 parameters) with AdamW, the weight-decay mask, clipping,
     EMA, a cosine schedule with warmup and the non-finite guard, 20 steps on
-    one fixed batch. The launch counts are read around this run only."""
+    one fixed batch: step 1 runs the step body eagerly (the warm-up), step 2
+    captures it, steps 3-20 replay its graph. The wrappers' launch counts
+    are read around this run (they move at the warm-up and the capture
+    only); then the profiler counts what 3 more replayed steps ran."""
     import torch
     import timm_tpu_torch
     from timm_tpu_torch.kernels import flash_attention, fused_adamw
@@ -760,23 +819,43 @@ def phase_train():
     wall = time.perf_counter() - t0
     launches = {'flash_attention': flash_attention.launches, 'fused_adamw': fused_adamw.launches}
     step_ms = start.elapsed_time(end) / (TRAIN_STEPS - TRAIN_WARMUP_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    reps = 3
+    kernels, counts, prof_wall_ms = _profile_kernels(
+        lambda: task.train_step(batch, lr=1e-5, step=TRAIN_STEPS + 1), reps)
+    replayed = _per_step(counts, reps)
+    busy = sum(kernels.values())
     losses = [float(m['loss']) for m in metrics]
     last = metrics[-1]
     emit({'phase': 'train', 'model': 'vit_base_patch16_224', 'dtype': 'bfloat16',
           'batch': TRAIN_BATCH, 'steps': TRAIN_STEPS, 'drop_path_rate': 0.1,
           'losses': losses, 'grad_norms': [float(m['grad_norm']) for m in metrics], 'lrs': lrs,
           'step_ms': step_ms, 'img_per_s': TRAIN_BATCH / step_ms * 1e3, 'wall_s': wall,
-          'peak_memory_gb': torch.cuda.max_memory_allocated() / 2 ** 30,
+          'peak_memory_gb': peak_gb,
+          'graph_pool_bytes': task.train_graphs.pool_bytes(),
+          'graph_static_input_bytes': task.train_graphs.static_bytes(),
+          'captures': task.train_graphs.captures, 'replays': task.train_graphs.replays,
           'nonfinite_count': int(last['nonfinite_count']),
           'nonfinite_total': int(last['nonfinite_total']),
           'optimizer_count': int(task.optimizer.count),
-          'flash_launches_per_step': flash_steps, 'fused_adamw_launches_per_step': adamw_steps,
-          'launches': launches})
+          # the wrappers count at the warm-up and the capture; a replay runs no Python
+          'wrapper_flash_launches_per_step': flash_steps,
+          'wrapper_fused_adamw_launches_per_step': adamw_steps, 'launches': launches,
+          'profiled_replays': reps, 'replayed_kernels_per_step': replayed if kernels else
+          'not measured', 'replay_wall_ms_per_step': prof_wall_ms,
+          'replay_device_ms_per_step': busy if kernels else 'not measured',
+          'replay_idle_share': 1.0 - busy / prof_wall_ms if kernels else 'not measured'})
     check(all(np.isfinite(losses)), f'train: non-finite loss in {losses}')
     check(losses[-1] < losses[0], f'train: last loss {losses[-1]} not below first {losses[0]}')
-    check(adamw_steps == [1] * TRAIN_STEPS, f'train: fused_adamw launches per step {adamw_steps}')
-    check(flash_steps == [depth] * TRAIN_STEPS, f'train: flash launches per step {flash_steps}')
-    check(int(last['nonfinite_total']) == 0 and int(task.optimizer.count) == TRAIN_STEPS,
+    check(adamw_steps == [1, 1] + [0] * (TRAIN_STEPS - 2),
+          f'train: fused_adamw wrapper launches per step {adamw_steps}')
+    check(flash_steps == [depth, depth] + [0] * (TRAIN_STEPS - 2),
+          f'train: flash wrapper launches per step {flash_steps}')
+    check(task.train_graphs.captures == 1, 'train: the step was not captured once')
+    check(bool(kernels), 'train: the profiler saw no kernel of the replayed steps')
+    check(replayed['flash_attention'] == depth and replayed['fused_adamw'] == 1,
+          f'train: a replayed step ran {replayed}')
+    check(int(last['nonfinite_total']) == 0 and int(task.optimizer.count) == TRAIN_STEPS + reps,
           'train: the guard skipped a step')
     return launches, task, batch, step_ms
 
@@ -878,8 +957,9 @@ def phase_input_train(train_step_ms: float):
     seeded PNGs through create_dataset -> create_loader (threaded decode and
     transforms, DevicePrefetcher(size=2), DeviceAugmentStage with Mixup /
     CutMix and RandomErasing sampled on the host, the augment-epilogue
-    kernel). The launch counts are read around this run only. Then: a
-    profiler breakdown over 3 steps, the input path's own rate over 2 epochs
+    kernel); the train step is a graph from step 2 on. The wrappers' launch
+    counts are read around this run only. Then: a profiler breakdown over 3
+    steps, which counts the kernels they ran, the input path's own rate over 2 epochs
     without training, and a card stage and a CPU stage over the same
     deterministic loader, which must agree."""
     import tempfile
@@ -962,12 +1042,14 @@ def phase_input_train(train_step_ms: float):
         torch.cuda.synchronize()
         loader_img_per_s = 2 * len(loader) * TRAIN_BATCH / (time.perf_counter() - tl)
         loader_only.close()
-        kernels = {}
+        kernels, counts = {}, {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA and not getattr(e, 'is_user_annotation', False):
                 kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3 / reps
+                counts[e.name] = counts.get(e.name, 0) + 1
         busy = sum(kernels.values())
         epilogue = sum(v for k, v in kernels.items() if 'augment_epilogue_kernel' in k)
+        replayed = _per_step(counts, reps)
 
         host_ms = _host_ms_per_image(root, data_config)
 
@@ -1000,8 +1082,11 @@ def phase_input_train(train_step_ms: float):
            'loader_only_wait_ms_per_batch': loader_wait_ms,
            'host_ms_per_image_one_thread': host_ms,
            'peak_memory_gb': peak_gb,
-           'launches_per_step': per_step, 'launches': launches,
+           # the wrappers' counts: flash and fused_adamw at the train step's
+           # warm-up and capture only, augment_epilogue (eager) every step
+           'wrapper_launches_per_step': per_step, 'launches': launches,
            'profiled_steps': reps, 'wall_ms_per_step_profiled': prof_wall_ms,
+           'kernels_per_profiled_step': replayed if kernels else 'not measured',
            'device_ms_per_step': busy if kernels else 'not measured',
            'idle_share': 1.0 - busy / prof_wall_ms if kernels else 'not measured',
            'augment_epilogue_ms_per_step': epilogue if kernels else 'not measured',
@@ -1012,10 +1097,17 @@ def phase_input_train(train_step_ms: float):
     check(all(np.isfinite(losses)), f'input_train: non-finite loss in {losses}')
     check([p[2] for p in per_step] == [1] * TRAIN_STEPS,
           f'input_train: augment_epilogue launches per step {[p[2] for p in per_step]}')
-    check([p[1] for p in per_step] == [1] * TRAIN_STEPS,
-          f'input_train: fused_adamw launches per step {[p[1] for p in per_step]}')
-    check([p[0] for p in per_step] == [depth] * TRAIN_STEPS,
-          f'input_train: flash launches per step {[p[0] for p in per_step]}')
+    graphed = [1, 1] + [0] * (TRAIN_STEPS - 2)
+    check([p[1] for p in per_step] == graphed,
+          f'input_train: fused_adamw wrapper launches per step {[p[1] for p in per_step]}')
+    check([p[0] for p in per_step] == [depth * c for c in graphed],
+          f'input_train: flash wrapper launches per step {[p[0] for p in per_step]}')
+    # the prefetcher augments batches ahead of the steps, so how many of its
+    # (eager) epilogue launches fall in the profiled window depends on timing;
+    # its count per step is the wrapper's, checked above
+    check(bool(kernels) and replayed['flash_attention'] == depth
+          and replayed['fused_adamw'] == 1 and replayed['augment_epilogue'] > 0,
+          f'input_train: a profiled step ran {replayed}')
     check(stage_err <= AUGMENT_TOL, f'input_train: card vs CPU stage max abs err {stage_err}')
     del task, model, opt, loader
     torch.cuda.empty_cache()
@@ -1074,7 +1166,9 @@ def phase_drivers():
     deterministic, within the difference of A and a second A); validate on
     A's EMA weights held to A's final EMA evaluation; inference's top-1
     held to validate's; one `python -m timm_tpu_torch.validate` subprocess.
-    Launch counts are read around each run."""
+    The wrappers' launch counts are read around each run (they move at a
+    graph's warm-up and capture only); run C also runs under the profiler,
+    which counts the kernels it ran, replays included."""
     import contextlib
     import csv
     import logging
@@ -1082,6 +1176,9 @@ def phase_drivers():
     import tempfile
 
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from timm_tpu_torch import inference, train, validate
     from timm_tpu_torch.kernels import augment_epilogue, flash_attention, fused_adamw
     from timm_tpu_torch.task.task import TrainingTask
@@ -1104,16 +1201,27 @@ def phase_drivers():
                 spans[kind].append((t, time.perf_counter()))
         return wrapper
 
-    def run(fn, argv):
+    def run(fn, argv, profiled=None):
+        """Run a driver; with ``profiled`` (a dict), the profiler's count of
+        each kernel the run ran goes into it."""
         for k in kernels:
             k.launches = 0
         for v in spans.values():
             del v[:]
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(sys.stderr):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(contextlib.redirect_stdout(sys.stderr))
+            prof = None if profiled is None else stack.enter_context(
+                profile(activities=[ProfilerActivity.CUDA]))
             result = fn(argv)
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if prof is not None:
+            counts = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA and not getattr(e, 'is_user_annotation', False):
+                    counts[e.name] = counts.get(e.name, 0) + 1
+            profiled.update(_per_step(counts, 1))
         counts = {k.__name__: k.launches for k in kernels}
         torch.cuda.empty_cache()
         return result, wall, counts, list(spans['update'])
@@ -1150,7 +1258,6 @@ def phase_drivers():
         per_epoch = n_train // 64
         updates = 2 * per_epoch
         depth = 12
-        evals = 2 * 2 * -(-n_val // 64)  # per epoch: the weights and the EMA
 
         def train_argv(experiment, *extra):
             return DRIVER_FLAGS + ['--data-dir', data, '--output', out,
@@ -1162,9 +1269,11 @@ def phase_drivers():
         row['wall_s']['a'], row['launches']['a'] = wall_a, launches_a
         row['train_from_update_3'] = {'a': train_rates(starts_a, per_epoch)}
         check(rc_a == 0, f'drivers: run A exited {rc_a}')
-        check(launches_a == {'flash_attention': depth * (updates + evals),
-                             'fused_adamw': updates, 'augment_epilogue': updates},
-              f'drivers: run A launches {launches_a}')
+        # the wrappers count the warm-up and the capture of each graph: the
+        # train step's and the eval step's with and without the EMA
+        check(launches_a == {'flash_attention': depth * (2 + 2 * 2), 'fused_adamw': 2,
+                             'augment_epilogue': updates},
+              f'drivers: run A wrapper launches {launches_a}')
         _trim_run_dir(os.path.join(out, 'a'))
         rc_b, wall_b, launches_b, starts_b = run(
             train.main, train_argv('b', '--fault-inject', f'sigterm@{DRIVER_SIGTERM_AT}'))
@@ -1176,11 +1285,24 @@ def phase_drivers():
         check(len(recovery) == 1, f'drivers: run B left {recovery}, want one recovery file of epoch 1')
         check(len(starts_b) == DRIVER_SIGTERM_AT + 1, f'drivers: run B took {len(starts_b)} updates')
         _trim_run_dir(os.path.join(out, 'b'))
-        rc_c, wall_c, launches_c, starts_c = run(train.main, train_argv('b', '--resume', 'auto'))
+        ran_c = {}
+        rc_c, wall_c, launches_c, starts_c = run(train.main, train_argv('b', '--resume', 'auto'),
+                                                 profiled=ran_c)
         row['wall_s']['c'], row['launches']['c'] = wall_c, launches_c
         check(rc_c == 0, f'drivers: run C exited {rc_c}')
         check(len(starts_c) == updates - DRIVER_SIGTERM_AT - 1,
               f'drivers: run C took {len(starts_c)} updates')
+        # what run C ran on the card, replays included, under the profiler:
+        # its updates and epoch 1's two evaluations; the loader augments the
+        # batches of epoch 1 that the resume skips (run B consumed them) too
+        evals_c = 2 * -(-n_val // 64)
+        skipped_c = DRIVER_SIGTERM_AT + 1 - per_epoch
+        row['run_c_kernels_ran'] = ran_c
+        check(ran_c == {'flash_attention': depth * (len(starts_c) + evals_c),
+                        'fused_adamw': len(starts_c),
+                        'augment_epilogue': len(starts_c) + skipped_c},
+              f'drivers: run C ran {ran_c} for {len(starts_c)} updates, {evals_c} eval batches '
+              f'and {skipped_c} skipped batches')
         check(not [n for n in os.listdir(os.path.join(out, 'b')) if n.startswith('recovery-')],
               'drivers: the end of epoch 1 did not prune the recovery file')
 
@@ -1223,8 +1345,9 @@ def phase_drivers():
         row['wall_s']['validate'], row['launches']['validate'] = wall_v, launches_v
         row['validate'] = {'loss': val['loss'], 'top1': val['top1'], 'top5': val['top5']}
         row['validate_img_per_s'] = val['img_per_s']
-        check(launches_v['flash_attention'] == depth * -(-n_val // 64),
-              f'drivers: validate launches {launches_v}')
+        # one graph for every batch (the last one padded): a warm-up and a capture
+        check(launches_v['flash_attention'] == depth * min(2, -(-n_val // 64)),
+              f'drivers: validate wrapper launches {launches_v}')
         check(abs(val['loss'] - ema_loss) <= DRIVER_EVAL_REL_TOL * abs(ema_loss),
               f'drivers: validate loss {val["loss"]} vs run A EMA eval {ema_loss}')
         check(abs(val['top1'] - ema_top1) <= 100.0 / n_val + 1e-9,
@@ -1254,8 +1377,8 @@ def phase_drivers():
         row['inference_top1_agrees'] = agree
         check(agree == n_val == len(predictions),
               f'drivers: inference top-1 agrees with validate on {agree} of {n_val} images')
-        check(launches_i['flash_attention'] == depth * -(-n_val // 64),
-              f'drivers: inference launches {launches_i}')
+        check(launches_i['flash_attention'] == depth * min(2, -(-n_val // 64)),
+              f'drivers: inference wrapper launches {launches_i}')
 
         # the module entry point, as a user runs it
         results_json = os.path.join(tmp, 'validate.json')
@@ -1313,9 +1436,11 @@ def phase_train_vs_cpu():
 
 def phase_train_breakdown(task, batch):
     """Where the time of a train step goes: device time by kernel from
-    torch.profiler over 3 steps, the device's idle share of the host wall
-    time, and the shares of the flash forward, the attention backward (the
-    named range around the plain recompute) and fused_adamw; the attention
+    torch.profiler over 3 eager runs of the step body (the graph replays
+    the same kernels, but a replay records no named range), the device's
+    idle share of the host wall time, and the shares of the flash forward,
+    the attention backward (the named range around the plain recompute) and
+    fused_adamw; the attention
     backward of one layer timed alone with CUDA events; and the library's
     attention backward at the same shapes (SDPA forward + backward less its
     forward), timed only: the port never calls it."""
@@ -1327,12 +1452,17 @@ def phase_train_breakdown(task, batch):
     from timm_tpu_torch.kernels.harness import time_ms
     from timm_tpu_torch.kernels.registry import PEAK_BYTES_PER_S, PEAK_OPS_PER_S
     reps = 3
-    task.train_step(batch, lr=1e-5, step=TRAIN_STEPS + 1)
+
+    def eager_step(step):
+        task.optimizer.set_hyperparams(lr=1e-5, ema_decay=task.ema.get_decay(step))
+        task.model.train()
+        task._train_body(batch)
+    eager_step(TRAIN_STEPS + 10)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(reps):
-            task.train_step(batch, lr=1e-5, step=TRAIN_STEPS + 2 + i)
+            eager_step(TRAIN_STEPS + 11 + i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     kernels, attn_bwd = {}, 0.0
@@ -1371,7 +1501,7 @@ def phase_train_breakdown(task, batch):
     library_fwd_bwd_ms = time_ms(library_fwd_bwd, iters=20, warmup=3)
     library_bwd_ms = library_fwd_bwd_ms - library_fwd_ms
     emit({'phase': 'train_breakdown', 'model': 'vit_base_patch16_224', 'batch': TRAIN_BATCH,
-          'wall_ms_per_step': wall_ms,
+          'profiled': 'eager step body', 'wall_ms_per_step': wall_ms,
           'device_ms_per_step': busy if kernels else 'not measured',
           'idle_share': 1.0 - busy / wall_ms if kernels else 'not measured',
           'flash_fwd_ms': flash, 'flash_fwd_share': share(flash),
@@ -1385,6 +1515,178 @@ def phase_train_breakdown(task, batch):
           'sdpa_fwd_ms': library_fwd_ms, 'sdpa_fwd_bwd_ms': library_fwd_bwd_ms,
           'top_kernels': [{'kernel': k[:120], 'ms': v} for k, v in top]})
     return bwd_ms, library_bwd_ms
+
+
+# phase train_graph: step 7 of the 20 is a non-finite batch the guard skips
+TRAIN_GRAPH_NAN_STEP = 7
+TRAIN_GRAPH_ODD_BATCH = 37
+
+
+def _bit_equal(a, b) -> bool:
+    """torch.equal on the bits, so that NaNs made the same way are equal."""
+    import torch
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = a.view(ints[a.element_size()]), b.view(ints[b.element_size()])
+    return torch.equal(a, b)
+
+
+def _train_state(task):
+    """Every tensor a train step updates or reads as state."""
+    opt = task.optimizer
+    return ([opt.flat_param, opt.count, opt.lr_t, opt.ema_decay_t, task._sentinel_state]
+            + list(opt.slots().values()) + ([opt.ema] if opt.ema is not None else []))
+
+
+def _graph_vs_eager(opt_name: str, accum: int, batches, nan_batch, timed: bool):
+    """One ViT-B/16 task (bf16, drop_path 0.1, clip 1.0, EMA 0.9998 with
+    warmup, cosine lr with 3 warmup steps, the guard on) from one state:
+    20 eager steps of the step body (what ``train_step`` stages and runs,
+    the sentinel's poll included) and 20 ``train_step`` calls (a warm-up,
+    a capture, 18 replays), every metric and buffer and the drop
+    generator's state compared with torch.equal. With ``timed``: step ms
+    of steps 3-20 (CUDA events) and the idle share of 3 profiled steps of
+    each; the memory the graph keeps."""
+    import torch
+    import timm_tpu_torch
+    from timm_tpu_torch.layers.drop import get_drop_generator
+    task = _train_task(0, 'cuda', torch.bfloat16, 0.1, opt=opt_name, clip_grad=1.0,
+                       grad_accum_steps=accum)
+    task.setup_ema(decay=0.9998, warmup=True)
+    gen = get_drop_generator(task.model)
+    sched, _ = timm_tpu_torch.create_scheduler_v2(
+        TRAIN_LR, 'cosine', num_epochs=TRAIN_STEPS, warmup_epochs=3, warmup_lr=1e-6)
+    lrs = [sched.step(i)[0] for i in range(TRAIN_STEPS)]
+
+    def batch(i):
+        return nan_batch if i + 1 == TRAIN_GRAPH_NAN_STEP else batches[i % len(batches)]
+
+    def eager_step(i):
+        step = i + 1
+        task.optimizer.set_hyperparams(lr=lrs[i % TRAIN_STEPS], ema_decay=task.ema.get_decay(step))
+        task.model.train()
+        metrics = {k: v.clone() for k, v in task._train_body(batch(i)).items()}
+        task.sentinel.observe(task._sentinel_state, step=step)
+        return metrics
+
+    def graph_step(i):
+        return task.train_step(batch(i), lr=lrs[i % TRAIN_STEPS], step=i + 1)
+
+    start_state = [t.clone() for t in _train_state(task)], gen.get_state()
+    runs = {}
+    for mode, fn in (('eager', eager_step), ('graph', graph_step)):
+        for t, v in zip(_train_state(task), start_state[0]):
+            t.copy_(v)
+        gen.set_state(start_state[1])
+        task.sentinel.reset()
+        task.sentinel.total = 0
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        metrics = []
+        for i in range(TRAIN_STEPS):
+            if i == TRAIN_WARMUP_STEPS:
+                start.record()
+            metrics.append(fn(i))
+        end.record()
+        torch.cuda.synchronize()
+        runs[mode] = {'metrics': metrics, 'state': [t.clone() for t in _train_state(task)],
+                      'gen': gen.get_state(),
+                      'step_ms': start.elapsed_time(end) / (TRAIN_STEPS - TRAIN_WARMUP_STEPS)}
+    e, g = runs['eager'], runs['graph']
+    names = ['params', 'count', 'lr', 'ema_decay', 'sentinel'] + list(task.optimizer.slots()) + (
+        ['ema'] if task.optimizer.ema is not None else [])
+    differ = [n for n, a, b in zip(names, e['state'], g['state']) if not _bit_equal(a, b)]
+    if not torch.equal(e['gen'], g['gen']):
+        differ.append('drop_generator')
+    metric_steps = [i + 1 for i, (a, b) in enumerate(zip(e['metrics'], g['metrics']))
+                    if a.keys() != b.keys() or not all(_bit_equal(a[k], b[k]) for k in a)]
+    row = {'optimizer': opt_name, 'grad_accum_steps': accum,
+           'losses': [float(m['loss']) for m in g['metrics']],
+           'grad_norms': [float(m['grad_norm']) for m in g['metrics']],
+           'skipped_steps': [i + 1 for i, m in enumerate(g['metrics']) if bool(m['nonfinite'])],
+           'optimizer_count': int(task.optimizer.count),
+           'buffers_that_differ': differ, 'steps_whose_metrics_differ': metric_steps,
+           'captures': task.train_graphs.captures, 'replays': task.train_graphs.replays}
+    if timed:
+        reps = 3
+        eager_k, _, eager_wall = _profile_kernels(lambda: eager_step(TRAIN_STEPS), reps)
+        graph_k, graph_counts, graph_wall = _profile_kernels(lambda: graph_step(TRAIN_STEPS), reps)
+        row.update(eager_step_ms=e['step_ms'], replay_step_ms=g['step_ms'],
+                   eager_img_per_s=TRAIN_BATCH / e['step_ms'] * 1e3,
+                   replay_img_per_s=TRAIN_BATCH / g['step_ms'] * 1e3,
+                   eager_wall_ms_profiled=eager_wall, replay_wall_ms_profiled=graph_wall,
+                   eager_device_ms=sum(eager_k.values()) if eager_k else 'not measured',
+                   replay_device_ms=sum(graph_k.values()) if graph_k else 'not measured',
+                   eager_idle_share=1 - sum(eager_k.values()) / eager_wall if eager_k
+                   else 'not measured',
+                   replay_idle_share=1 - sum(graph_k.values()) / graph_wall if graph_k
+                   else 'not measured',
+                   replayed_kernels_per_step=_per_step(graph_counts, reps),
+                   graph_pool_bytes=task.train_graphs.pool_bytes(),
+                   graph_static_input_bytes=task.train_graphs.static_bytes())
+    return row, task
+
+
+def _eval_graph_vs_eager(task):
+    """The eval graph against the eager forward, with and without the EMA,
+    at batch 64 and at an odd last batch: 3 calls each (a warm-up, a
+    capture and replay, a replay), each equal with torch.equal."""
+    import torch
+    out = {}
+    for n in (TRAIN_BATCH, TRAIN_GRAPH_ODD_BATCH):
+        x = torch.from_numpy(_images(n, seed=n)).cuda()
+        for use_ema in (False, True):
+            got = [task.eval_step({'input': x}, use_ema=use_ema) for _ in range(3)]
+            task.model.eval()
+            with torch.no_grad():
+                want = (torch.func.functional_call(task.model, task.ema_params, (x,))
+                        if use_ema else task.model(x))
+            task.model.train()
+            out[f'b{n}_{"ema" if use_ema else "weights"}'] = all(torch.equal(g, want) for g in got)
+    return out
+
+
+def phase_train_graph():
+    """The compiled train step against its eager body, bit for bit: AdamW,
+    AdamW with gradient accumulation 2, and SGD, each from one state over 20
+    steps in which lr and the EMA decay change every step and step 7 is
+    skipped by the guard; eager and replayed step ms, idle shares and the
+    graph's memory (AdamW); the eval graph against the eager forward."""
+    import torch
+    batches = [_train_batch(TRAIN_BATCH, 40 + i, 'cuda') for i in range(4)]
+    nan_batch = dict(batches[0], input=batches[0]['input'].clone())
+    nan_batch['input'][3, 100, 100, 1] = float('nan')
+    rows = []
+    for opt_name, accum in (('adamw', 1), ('adamw', 2), ('sgd', 1)):
+        timed = (opt_name, accum) == ('adamw', 1)
+        row, task = _graph_vs_eager(opt_name, accum, batches, nan_batch, timed)
+        if timed:
+            row['eval_graph_equals_eager'] = _eval_graph_vs_eager(task)
+            row['eval_graph_captures'] = task.eval_graphs.captures
+        rows.append(row)
+        del task
+        torch.cuda.empty_cache()
+    emit({'phase': 'train_graph', 'model': 'vit_base_patch16_224', 'dtype': 'bfloat16',
+          'batch': TRAIN_BATCH, 'steps': TRAIN_STEPS, 'nan_step': TRAIN_GRAPH_NAN_STEP,
+          'runs': rows})
+    for row in rows:
+        what = f'train_graph {row["optimizer"]} accum {row["grad_accum_steps"]}'
+        check(not row['buffers_that_differ'],
+              f'{what}: replays differ from eager steps in {row["buffers_that_differ"]}')
+        check(not row['steps_whose_metrics_differ'],
+              f'{what}: metrics differ at steps {row["steps_whose_metrics_differ"]}')
+        check(row['skipped_steps'] == [TRAIN_GRAPH_NAN_STEP],
+              f'{what}: the guard skipped steps {row["skipped_steps"]}')
+        check(row['captures'] == 1 and row['replays'] >= TRAIN_STEPS - 1,
+              f'{what}: {row["captures"]} captures, {row["replays"]} replays')
+    timed = rows[0]
+    check(all(timed['eval_graph_equals_eager'].values()),
+          f'train_graph: eval graph vs eager forward {timed["eval_graph_equals_eager"]}')
+    check(timed['replayed_kernels_per_step']['flash_attention'] == 12
+          and timed['replayed_kernels_per_step']['fused_adamw'] == 1,
+          f'train_graph: a replayed step ran {timed["replayed_kernels_per_step"]}')
+    return timed
 
 
 def main() -> int:
@@ -1416,6 +1718,8 @@ def main() -> int:
         phase_train_vs_cpu()
         attn_bwd_ms, attn_bwd_library_ms = phase_train_breakdown(task, batch)
         del task, batch
+        torch.cuda.empty_cache()
+        phase_train_graph()
         input_launches = phase_input_train(train_step_ms)
         driver_launches = phase_drivers()
     except Exception:

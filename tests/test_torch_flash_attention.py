@@ -74,6 +74,27 @@ def test_plain_matches_jax_flash_and_sdpa(jax_attention, case, dtype):
     np.testing.assert_allclose(out, ref_sdpa, atol=TOL[dtype], rtol=0)
 
 
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('n', [37, 197, 576])
+def test_plain_fully_masked_row_matches_jax_flash(jax_attention, n, dtype):
+    """A batch row whose keys are all masked: the plain version gives the
+    Pallas kernel's value (interpreted on the CPU), the sum of v over the N
+    keys divided by round_up(N, block_k), and the other row matches too;
+    within TOL (fp32 1e-5, bf16 2e-2: the two sum v in other orders)."""
+    jnp, jax_flash, _ = jax_attention
+    q, k, v, mask = _inputs(n, 2, 1, n, 32, valid=[0, n // 2])
+    v = v + 1  # a mean far from 0, so sum / slots and the mean differ
+    out = _to_np(flash_attention(*(torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)),
+                                 mask=torch.from_numpy(mask)))
+    ref = _to_np(jax_flash(*(jnp.asarray(a, dtype) for a in (q, k, v)), mask=jnp.asarray(mask)))
+    np.testing.assert_allclose(out, ref, atol=TOL[dtype], rtol=0)
+    block = min(512, max(128, 1 << (n - 1).bit_length()))
+    slots = -(-n // block) * block
+    np.testing.assert_allclose(out[0], np.broadcast_to(
+        _to_np(torch.from_numpy(v[0]).to(getattr(torch, dtype))).sum(-2, keepdims=True) / slots,
+        out[0].shape), atol=TOL[dtype], rtol=0)
+
+
 def test_float_mask_rejected_like_jax(jax_attention):
     jnp, jax_flash, _ = jax_attention
     q, k, v, _ = _inputs(0, 2, 2, 16, 32)
@@ -270,9 +291,9 @@ def test_kernel_sharp_scores_on_card(n, head_dim, dtype):
 @pytest.mark.parametrize('n', [37, 128, 197])
 def test_kernel_fully_masked_row_on_card(n, dtype):
     """A batch row whose keys are all masked comes out finite and as the
-    kernel's header states: the sum of v over the N keys divided by the key
-    slots the kernel computes, round_up(N, 8) for bf16 and fp16 and
-    round_up(N, 32) for fp32; the other rows match the plain version."""
+    TPU kernel gives it: the sum of v over the N keys divided by
+    round_up(N, block_k), block_k = min(512, max(128, next_pow2(N)));
+    the plain version gives the same, and the other rows match it too."""
     _card_or_skip()
     B, H, D = 3, 2, 64
     q, k, v = _fused_qkv_views(B, n, H, D, dtype, seed=3 * n)
@@ -283,13 +304,12 @@ def test_kernel_fully_masked_row_on_card(n, dtype):
     out = flash_attention(q, k, v, mask=mask)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out).all())
-    block = 32 if dtype == torch.float32 else 8
+    block = min(512, max(128, 1 << (n - 1).bit_length()))
     slots = -(-n // block) * block
     expected = v[1].float().sum(dim=-2, keepdim=True) / slots  # (H, 1, D)
     tol = 2e-2 if dtype != torch.float32 else 1e-5
     err = (out[1].float() - expected).abs().max().item()
     assert err <= tol, f'fully masked row: max abs err {err}'
     ref = _plain(q, k, v, mask)
-    keep = [0, 2]
-    err = (out[keep].float() - ref[keep].float()).abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
     assert err <= tol, f'max abs err {err}'

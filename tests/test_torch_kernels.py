@@ -174,7 +174,9 @@ def test_io_bytes_and_bound_from_the_registry():
     spec = registry.get('fused_adamw')
     inputs = spec.make_inputs(device='cpu', **spec.cases[0].dry)
     n = inputs['p'].numel()
-    assert registry.default_io_bytes(spec, spec.cases[0], inputs) == n * 36 + 4
+    # 36 bytes a parameter, the int32 count, and lr and the EMA decay,
+    # one fp32 device scalar each
+    assert registry.default_io_bytes(spec, spec.cases[0], inputs) == n * 36 + 4 + 2 * 4
 
 
 _FLASH = registry.get('flash_attention')

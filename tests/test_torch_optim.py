@@ -106,7 +106,7 @@ def _run_port(st, mu_bf16, with_ema, steps=3):
     return out
 
 
-def _run_jax(jx, name, st, mu_bf16, with_ema, steps=3):
+def _run_jax(jx, name, st, mu_bf16, with_ema, steps=3, lrs=(LR,) * 3, decays=(EMA_DECAY,) * 3):
     jnp = jx.jnp
     fn = jx.oracle(name, mu_bf16, with_ema)
 
@@ -117,7 +117,7 @@ def _run_jax(jx, name, st, mu_bf16, with_ema, steps=3):
     e = tree(st['e']) if with_ema else None
     for s in range(steps):
         p, m, v, e = fn(p, tree(st['grads'][s]), m, v, e, jnp.asarray(s, jnp.int32),
-                        jnp.asarray(LR, jnp.float32), jnp.asarray(EMA_DECAY, jnp.float32))
+                        jnp.asarray(lrs[s], jnp.float32), jnp.asarray(decays[s], jnp.float32))
     leaves = lambda t: [np.asarray(t[f'leaf{i}'].astype(jnp.float32)) for i in range(len(SIZES))]  # noqa: E731
     out = dict(p=leaves(p), m=leaves(m), v=leaves(v))
     if with_ema:
@@ -139,6 +139,32 @@ def test_plain_fused_adamw_matches_jax(jx, oracle, mu_bf16, with_ema):
     ref = _run_jax(jx, oracle, st, mu_bf16, with_ema)
     for k in ref:
         for a, b in zip(port[k], ref[k]):
+            assert float(np.abs(a - b).max()) <= 1e-6, k
+
+
+@pytest.mark.parametrize('mu_bf16', [False, True], ids=['mu_fp32', 'mu_bf16'])
+@pytest.mark.parametrize('oracle', ['optax', 'pallas_interpret'])
+def test_plain_fused_adamw_reads_lr_and_decay_from_tensors(jx, oracle, mu_bf16):
+    """lr and the EMA decay change every step, written into the same two
+    fp32 tensors that the update reads (as a graph replay reads them): p,
+    m, v and ema within 1e-6 max abs of JAX's, fed the same per-step
+    values."""
+    lrs, decays = (0.02, 0.005, 0.03), (0.0, 0.5, 0.999)
+    st = _state(2, mu_bf16)
+    p, slots, n_decay = _flatten(st['p'])
+    m = _flatten(st['m'], torch.bfloat16 if mu_bf16 else torch.float32)[0]
+    v, e = _flatten(st['v'])[0], _flatten(st['e'])[0]
+    count = torch.zeros((), dtype=torch.int32)
+    lr_t, decay_t = torch.zeros(()), torch.zeros(())
+    for s in range(3):
+        lr_t.fill_(lrs[s])
+        decay_t.fill_(decays[s])
+        fused_adamw_reference(p, _flatten(st['grads'][s])[0], m, v, e, count, lr=lr_t,
+                              n_decay=n_decay, ema_decay=decay_t, **HP)
+    ref = _run_jax(jx, oracle, st, mu_bf16, True, lrs=lrs, decays=decays)
+    port = dict(p=p, m=m, v=v, e=e)
+    for k in ref:
+        for a, b in zip(_unflatten(port[k], slots), ref[k]):
             assert float(np.abs(a - b).max()) <= 1e-6, k
 
 

@@ -191,7 +191,7 @@ def dryrun():
 
     adam = _find_adam_states(jtask.opt_state)[0]
     return types.SimpleNamespace(
-        task=task, metrics=(np.array(port_metrics), np.array(jax_metrics)),
+        task=task, jtask=jtask, metrics=(np.array(port_metrics), np.array(jax_metrics)),
         state={
             'params': ({k: v.detach().numpy() for k, v in task.model.state_dict().items()},
                        port_names(model_state_dict(jm))),
@@ -440,3 +440,37 @@ def test_normalize_input_and_value_clipping_in_the_task():
         assert float(np.abs(ours.float().numpy() - np.asarray(ref.astype(jnp.float32))).max()) <= 1e-6
     task.train_step({'input': x, 'target': np.array([1, 2])}, lr=1e-3, step=1)
     assert float(opt.flat_grad.abs().max()) == pytest.approx(1e-4)
+
+
+def test_changing_lr_and_ema_decay_through_device_scalars_match_jax(dryrun):
+    """After the dryrun's steps, 5 more under a cosine schedule with 3 warmup
+    steps and the EMA's warmup, so lr and the EMA decay change every step:
+    each is written into the optimizer's same two device scalars, the
+    losses and grad norms stay within 1e-5 of JAX's, and the EMA follows
+    ema' = d ema + (1 - d) p' with each step's d within 1e-6. A value
+    baked into the step would show here. Runs last: it moves both tasks on."""
+    import jax.numpy as jnp
+
+    from timm_tpu_torch.scheduler import create_scheduler_v2
+    task, jtask = dryrun.task, dryrun.jtask
+    opt = task.optimizer
+    task.ema.use_warmup = jtask.ema.use_warmup = True  # host-side in both: no recompile
+    sched, _ = create_scheduler_v2(LR, 'cosine', num_epochs=8, warmup_epochs=3, warmup_lr=1e-6)
+    ptrs = (opt.lr_t.data_ptr(), opt.ema_decay_t.data_ptr())
+    ours, ref, seen = [], [], set()
+    for i, b in enumerate(_batches(STEPS + 5)[STEPS:]):
+        step = STEPS + 1 + i
+        lr = sched.step(i)[0]
+        decay = task.ema.get_decay(step)
+        ema_before = opt.ema.clone()
+        pm = task.train_step(b, lr=lr, step=step)
+        assert float(opt.lr_t) == np.float32(lr) and float(opt.ema_decay_t) == np.float32(decay)
+        seen.add((float(opt.lr_t), float(opt.ema_decay_t)))
+        d = opt.ema_decay_t
+        np.testing.assert_allclose(opt.ema.numpy(), (ema_before * d + opt.flat_param * (1 - d)).numpy(),
+                                   atol=1e-6, rtol=0)
+        ours.append([float(pm['loss']), float(pm['grad_norm'])])
+        jm_ = jtask.train_step({k: jnp.asarray(v) for k, v in b.items()}, lr=lr, step=step)
+        ref.append([float(jm_['loss']), float(jm_['grad_norm'])])
+    assert len(seen) == 5 and (opt.lr_t.data_ptr(), opt.ema_decay_t.data_ptr()) == ptrs
+    np.testing.assert_allclose(np.array(ours), np.array(ref), atol=1e-5, rtol=1e-5)

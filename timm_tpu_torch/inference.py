@@ -69,6 +69,7 @@ def main(argv=None) -> int:
     from .serve import batch_bucket, pad_rows, strip_rows
     from .task import Normalize
     from .utils import setup_default_logging
+    from .utils.cuda_graph import StepGraphs
     from .validate import build_model, check_unported, eval_loader
 
     if not logging.root.handlers:
@@ -89,12 +90,19 @@ def main(argv=None) -> int:
     normalize = Normalize(data_config['mean'], data_config['std'], device)
     k = min(args.topk, args.num_classes or model.num_classes)
 
-    @torch.no_grad()
-    def infer_step(x):
-        probs = torch.softmax(model(normalize(x)).float(), dim=-1)
+    def infer_body(b):
+        probs = torch.softmax(model(normalize(b['x'])).float(), dim=-1)
         # descending, ties to the higher index, as JAX's reversed argsort
         order = torch.argsort(probs, dim=-1, stable=True).flip(-1)[:, :k]
         return order, torch.gather(probs, 1, order)
+
+    # the jitted step's counterpart: one CUDA graph per input shape (eager
+    # on the CPU)
+    infer_graphs = StepGraphs(infer_body, device)
+
+    @torch.no_grad()
+    def infer_step(x):
+        return infer_graphs({'x': x})
 
     bucket = batch_bucket(args.batch_size)
     all_indices, all_probs = [], []
@@ -103,7 +111,7 @@ def main(argv=None) -> int:
         n = int(x.shape[0])
         if n != bucket:  # the last, partial batch pads up to the bucket shape
             x, _valid = pad_rows(x, bucket)
-        idx, prb = strip_rows(infer_step(torch.as_tensor(x).to(device)), n)
+        idx, prb = strip_rows(infer_step(x), n)
         all_indices.append(idx.cpu().numpy())
         all_probs.append(prb.cpu().numpy())
     if not all_indices:

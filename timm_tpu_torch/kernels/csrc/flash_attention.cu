@@ -7,7 +7,8 @@
 //   * masked keys and the ragged key tail beyond N are set to -1e30;
 //   * a running (max, denominator, accumulator) is kept in fp32 per query row;
 //   * p is rounded to v's type before the product with v;
-//   * the output acc / max(l, 1e-30) is rounded to q's type.
+//   * the output acc / max(l, 1e-30) is rounded to q's type (a row whose keys
+//     are all masked: acc / round_up(N, block_k), below).
 // Where p is rounded differs. The TPU kernel takes one key block of
 // block_k = min(512, max(128, next_pow2(N))) keys, so for N <= 512 it
 // rounds p against the row's final max. This kernel walks keys in tiles of
@@ -17,18 +18,15 @@
 // registers (BK / 2 floats a thread); the whole key range of N = 197 would
 // take 128 and leave none for the accumulator. Both stay within the 2e-2
 // parity tolerance.
-// A query row whose keys are all masked keeps max -1e30, so every key slot
-// the kernel computes gets p = 1: it comes out as the sum of v over its N
-// keys divided by the number of slots computed (slots beyond N hold v = 0).
-// That is round_up(N, 8) for bf16 and fp16, the slots of the 8-key column
-// blocks the kernel runs, and round_up(N, 32) for fp32, whose kernel computes
-// every slot of its 32-key tiles. The TPU kernel divides by
-// round_up(N, block_k) instead, so the two agree only where those are equal:
-// for bf16 and fp16 N = 121-128, 249-256, 505-512, and above 512 the N within
-// 8 below a multiple of 512; for fp32 N = 97-128, 225-256, 481-512, and above
-// 512 the N within 32 below a multiple of 512. The plain version gives the
-// mean of v over the N keys. The ViT token pad never produces such a row:
-// the class token is always a valid key.
+// A query row whose keys are all masked keeps max -1e30, and so does the TPU
+// kernel's: there every key slot of its padded key range gets p = 1, so the
+// row comes out as the sum of v over its N keys (padded slots hold v = 0)
+// divided by round_up(N, block_k). This kernel computes fewer slots
+// (round_up(N, 8) for bf16 and fp16, round_up(N, 32) for fp32), whose v sum
+// is the same, and its epilogue divides such a row, found by its max, by
+// the TPU kernel's round_up(N, block_k) instead of its own sum of p. The
+// plain version gives the same. The ViT token pad never produces such a
+// row: the class token is always a valid key; NaFlex batches will.
 //
 // bf16 and fp16: a register-resident FA2-style kernel. A block of NW warps
 // takes BQ = 16 NW query rows of one (batch, head); each warp owns 16 of
@@ -120,6 +118,15 @@ template <>
 __device__ __forceinline__ __half from_float<__half>(float x) { return __float2half_rn(x); }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
+
+// The denominator of a query row whose keys are all masked: the key slots
+// the TPU kernel computes, N rounded up to its key block
+// min(512, max(128, next_pow2(N))).
+__device__ __forceinline__ float tpu_key_slots(int n) {
+  int block = 128;
+  while (block < n && block < 512) block *= 2;
+  return static_cast<float>((n + block - 1) / block * block);
+}
 
 // Copy rows [row0, row0 + R) of a (N, D) slab into shared memory with 16-byte
 // vector loads; rows at or beyond N are zero-filled. When `kScale`, each
@@ -478,13 +485,14 @@ __global__ void __launch_bounds__(L::kBlock, L::MINB) flash_fwd_kernel(const Par
   }
   if (!active) return;
 
-  // out = acc / max(l, 1e-30), staged in the warp's own Q rows, then stored
-  // 16 bytes a thread
+  // out = acc / max(l, 1e-30) (a fully masked row: acc / the TPU kernel's
+  // key slots), staged in the warp's own Q rows, then stored 16 bytes a
+  // thread
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = fmaxf(l[r], 1e-30f);
+    l[r] = m[r] == kMaskValue ? tpu_key_slots(n) : fmaxf(l[r], 1e-30f);
   }
   __syncwarp();  // at D = 256 the warp read Q from these rows
 #pragma unroll
@@ -605,9 +613,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_fp32(const Params p
   }
 
   float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float masked_row_l = tpu_key_slots(n);
   for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
-    if (q0 + r < n) o[(q0 + r) * p.o_sn + d] = os[r * L::LDO + d] / fmaxf(row_l[r], 1e-30f);
+    const float l = row_m[r] == kMaskValue ? masked_row_l : fmaxf(row_l[r], 1e-30f);
+    if (q0 + r < n) o[(q0 + r) * p.o_sn + d] = os[r * L::LDO + d] / l;
   }
 }
 

@@ -30,6 +30,14 @@
 // count lives on the device and is read here, so no value crosses to the
 // host.
 //
+// Run-time scalars. lr and the EMA decay d are one fp32 element each in
+// device memory, read by every block as the TPU kernel reads
+// [lr, 1-b1^t, 1-b2^t, ema_decay] from SMEM: a CUDA graph that captured a
+// launch then takes each replay's values, which the host writes there
+// before the replay. 1 - d is formed here in fp32 (round to nearest), as
+// the host formed it before. b1, b2, eps and the weight decay are constants
+// of the optimizer and stay launch values.
+//
 // Bound. The update streams every byte once: it reads p, g, m, v, ema and
 // writes p, m, v, ema, 36 B per parameter with an fp32 m and 32 B with a
 // bf16 m, about 25 operations per parameter: far below the card's
@@ -52,8 +60,9 @@ struct AdamwArgs {
   float* ema;  // null: no EMA
   long long n_vec;  // number of 4-element vectors
   long long n_decay;  // elements [0, n_decay) take weight decay
-  float neg_lr, b1, one_minus_b1, b1_bf16, b2, one_minus_b2, eps, wd, decay,
-      one_minus_decay;
+  float b1, one_minus_b1, b1_bf16, b2, one_minus_b2, eps, wd;
+  const float* lr;  // one element
+  const float* ema_decay;  // one element; null without EMA
   const int* count;  // pre-increment step count
   const float* grad_scale;  // null: 1
   const unsigned char* ok;  // null: always update
@@ -66,6 +75,9 @@ __global__ void __launch_bounds__(256) fused_adamw_kernel(AdamwArgs a) {
   const float bc1 = __fsub_rn(1.f, powf(a.b1, count_inc));
   const float bc2 = __fsub_rn(1.f, powf(a.b2, count_inc));
   const float scale = a.grad_scale != nullptr ? a.grad_scale[0] : 1.f;
+  const float neg_lr = -a.lr[0];
+  const float decay = kEma ? a.ema_decay[0] : 0.f;
+  const float one_minus_decay = __fsub_rn(1.f, decay);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < a.n_vec; i += stride) {
@@ -109,11 +121,11 @@ __global__ void __launch_bounds__(256) fused_adamw_kernel(AdamwArgs a) {
       const float v_hat = __fdiv_rn(v_new, bc2);
       float u = __fdiv_rn(m_hat, __fadd_rn(__fsqrt_rn(v_hat), a.eps));
       if (4 * i + j < a.n_decay) u = __fadd_rn(u, __fmul_rn(a.wd, pp[j]));
-      const float p_new = __fadd_rn(pp[j], __fmul_rn(a.neg_lr, u));
+      const float p_new = __fadd_rn(pp[j], __fmul_rn(neg_lr, u));
       pp[j] = p_new;
       vv[j] = v_new;
       m_out[j] = m_new;
-      if (kEma) ee[j] = __fadd_rn(__fmul_rn(ee[j], a.decay), __fmul_rn(p_new, a.one_minus_decay));
+      if (kEma) ee[j] = __fadd_rn(__fmul_rn(ee[j], decay), __fmul_rn(p_new, one_minus_decay));
     }
     reinterpret_cast<float4*>(a.p)[i] = p4;
     reinterpret_cast<float4*>(a.v)[i] = v4;
@@ -152,20 +164,23 @@ cudaError_t launch(const AdamwArgs& a, cudaStream_t stream) {
 extern "C" {
 
 // In place on p, m, v and ema (n elements each, n a multiple of 4, 16-byte
-// aligned; m 8-byte aligned when bf16). g, count, grad_scale and ok are
-// read only. Returns 0, -1 for bad arguments, or a cudaError_t.
+// aligned; m 8-byte aligned when bf16). g, lr, ema_decay, count, grad_scale
+// and ok are read only; lr and ema_decay (needed with ema) are device
+// pointers to one fp32 element. Returns 0, -1 for bad arguments, or a
+// cudaError_t.
 int timm_fused_adamw(float* p, const float* g, void* m, int mu_bf16, float* v, float* ema,
-                     long long n, long long n_decay, float lr, float b1, float one_minus_b1,
+                     long long n, long long n_decay, float b1, float one_minus_b1,
                      float b1_bf16, float b2, float one_minus_b2, float eps, float wd,
-                     float decay, float one_minus_decay, const int* count,
+                     const float* lr, const float* ema_decay, const int* count,
                      const float* grad_scale, const unsigned char* ok, void* stream) {
   if (n % 4 != 0 || n_decay < 0 || n_decay > n || p == nullptr || g == nullptr ||
-      m == nullptr || v == nullptr || count == nullptr) {
+      m == nullptr || v == nullptr || lr == nullptr || count == nullptr ||
+      (ema != nullptr && ema_decay == nullptr)) {
     return -1;
   }
   if (n == 0) return 0;
-  AdamwArgs a{p, g, m, v, ema, n / 4, n_decay, -lr, b1, one_minus_b1, b1_bf16, b2,
-              one_minus_b2, eps, wd, decay, one_minus_decay, count, grad_scale, ok};
+  AdamwArgs a{p, g, m, v, ema, n / 4, n_decay, b1, one_minus_b1, b1_bf16, b2,
+              one_minus_b2, eps, wd, lr, ema_decay, count, grad_scale, ok};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (mu_bf16) {

@@ -25,15 +25,14 @@ against the row's final max; this kernel walks keys in tiles of 64 (32 at
 D = 256) and rounds p against the running max, rescaling the fp32 sum
 afterwards, because a warp holds a tile's scores in registers and the whole
 key range would leave none for the accumulator. Both stay within the 2e-2
-parity tolerance. A query row whose keys are all masked comes out as the sum
-of v over its N keys divided by the key slots the kernel computes:
-round_up(N, 8) for bf16 and fp16 (the kernel's 8-key column blocks) and
-round_up(N, 32) for fp32 (its 32-key tiles). The TPU kernel divides by
-round_up(N, block_k), so the two agree for bf16 and fp16 only at N = 121-128,
-249-256, 505-512 and, above 512, the N within 8 below a multiple of 512; for
-fp32 at N = 97-128, 225-256, 481-512 and, above 512, the N within 32 below a
-multiple of 512. The plain version gives the mean of v. The ViT token pad
-never produces such a row: the class token is always a valid key.
+parity tolerance. A query row whose keys are all masked comes out as the
+TPU kernel gives it: every key slot of its padded key range gets p = 1, so
+the row is the sum of v over the N keys divided by round_up(N, block_k),
+block_k = min(512, max(128, next_pow2(N))). The kernel computes fewer slots
+and divides such a row by that count in its epilogue; the plain version
+puts the same value in place of ``_sdpa``'s mean of v. The ViT token pad
+never produces such a row (the class token is always a valid key); NaFlex
+batches will.
 
 The input contract is the JAX one: an optional bool key-padding mask of shape
 (B, N) or (B, 1, 1, N), True = valid key; any other mask raises, because the
@@ -65,18 +64,32 @@ import torch
 from ._build import load_library
 
 __all__ = ['KERNEL_HEAD_DIMS', 'flash_attention', 'flash_attention_backward',
-           'flash_attention_reference', 'kernel_smem_bytes']
+           'flash_attention_reference', 'kernel_smem_bytes', 'tpu_key_slots']
 
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
+def tpu_key_slots(n: int) -> int:
+    """The key slots the TPU kernel computes for ``n`` keys: n rounded up
+    to its key block, min(512, max(128, next_pow2(n)))."""
+    block = min(512, max(128, 1 << (n - 1).bit_length()))
+    return -(-n // block) * block
+
+
 def flash_attention_reference(q, k, v, mask=None, scale: Optional[float] = None):
     """The kernel's plain version: ``_sdpa`` of the port's attention layer,
     which mirrors the JAX ``_sdpa`` (q*scale in the source dtype, scores,
-    mask with the dtype's min, fp32 softmax cast back, product with v)."""
+    mask with the dtype's min, fp32 softmax cast back, product with v),
+    with the TPU kernel's value where a batch row's keys are all masked:
+    the fp32 sum of v over the keys over ``tpu_key_slots(N)``."""
     from ..layers.attention import _sdpa
-    return _sdpa(q, k, v, attn_mask=mask, scale=scale)
+    out = _sdpa(q, k, v, attn_mask=mask, scale=scale)
+    if mask is None:
+        return out
+    dead = ~mask.reshape(mask.shape[0], -1).any(dim=-1)
+    fill = (v.float().sum(dim=-2, keepdim=True) / tpu_key_slots(k.shape[-2])).to(out.dtype)
+    return torch.where(dead.view(-1, 1, 1, 1), fill, out)
 
 
 def _key_padding_mask(q, k, mask):

@@ -22,7 +22,14 @@ things of the JAX train step happen here because an in-place update cannot
 be selected afterwards: ``grad_scale`` (the clip factor) multiplies g, and
 ``ok`` (a device bool) leaves every buffer untouched when it is false. The
 int32 device ``count`` is read for the bias corrections and then advanced by
-one, or by ``ok``, so nothing is read back to the host.
+one, or by ``ok``, so nothing is read back to the host. ``lr`` and
+``ema_decay`` are one-element fp32 tensors on the buffers' device, read by
+the kernel when it runs, as the TPU kernel reads them from SMEM: a CUDA
+graph that captured the launch takes whatever the host wrote into them
+before each replay (the optimizer owns them, ``optim/_optimizers.py``). A
+Python float is taken too and copied to the device first, for eager calls;
+under a graph capture that copy raises rather than baking the value in.
+1 - decay is formed in fp32 from the fp32 decay.
 
 ``fused_adamw`` takes the plain version for CPU tensors only. For CUDA
 tensors it launches the kernel or raises ``NotImplementedError`` outside the
@@ -43,25 +50,39 @@ from ._build import load_library
 __all__ = ['fused_adamw', 'fused_adamw_reference']
 
 
-def _consts(b1: float, b2: float, ema_decay: float):
-    """The scalars as the JAX chain rounds them: Python-float differences
-    rounded to fp32, b1 rounded to bf16 for a bf16 first moment, and
-    1 - d taken in fp32 from the fp32 decay."""
-    d = np.float32(ema_decay)
+def _bf16(x: float) -> float:
+    """x rounded to bf16 (to nearest, ties to even), on the host."""
+    bits = int(np.float32(x).view(np.uint32))
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return float(np.uint32(bits).view(np.float32))
+
+
+def _consts(b1: float, b2: float):
+    """The optimizer's constants as the JAX chain rounds them: Python-float
+    differences rounded to fp32, and b1 rounded to bf16 for a bf16 first
+    moment."""
     return dict(one_minus_b1=float(np.float32(1 - b1)), one_minus_b2=float(np.float32(1 - b2)),
-                b1_bf16=float(torch.tensor(b1, dtype=torch.bfloat16).float()),
-                decay=float(d), one_minus_decay=float(np.float32(1) - d))
+                b1_bf16=_bf16(b1))
 
 
-def fused_adamw_reference(p, g, m, v, ema, count, *, lr: float, b1: float = 0.9,
+def _scalar(x, device) -> torch.Tensor:
+    """A run-time scalar as a one-element fp32 tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.tensor(float(x), dtype=torch.float32, device=device)
+
+
+def fused_adamw_reference(p, g, m, v, ema, count, *, lr, b1: float = 0.9,
                           b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
-                          n_decay: int = 0, ema_decay: float = 0.0,
+                          n_decay: int = 0, ema_decay=0.0,
                           grad_scale: Optional[torch.Tensor] = None,
                           ok: Optional[torch.Tensor] = None) -> None:
     """The kernel's plain version: the same update with PyTorch ops, in
-    place, one rounding per operation as in the unfused optax chain."""
-    c = _consts(b1, b2, ema_decay)
+    place, one rounding per operation as in the unfused optax chain; lr
+    and ema_decay are read from their tensors as the kernel reads them."""
+    c = _consts(b1, b2)
     f32 = torch.float32
+    lr = _scalar(lr, p.device).reshape(())
     gs = g if grad_scale is None else g * grad_scale.to(f32)
     count_inc = (count + 1).to(f32)
     bc1 = 1 - torch.pow(torch.tensor(b1, dtype=f32, device=p.device), count_inc)
@@ -75,11 +96,11 @@ def fused_adamw_reference(p, g, m, v, ema, count, *, lr: float, b1: float = 0.9,
     if weight_decay and n_decay:
         u = torch.cat([u[:n_decay] + torch.tensor(weight_decay, dtype=f32) * p[:n_decay],
                        u[n_decay:]])
-    p_new = p + torch.tensor(-lr, dtype=f32) * u
+    p_new = p + torch.neg(lr) * u
     new = [(p, p_new), (m, m_new.to(m.dtype)), (v, v_new)]
     if ema is not None:
-        e_new = (ema * torch.tensor(c['decay'], dtype=f32)
-                 + p_new * torch.tensor(c['one_minus_decay'], dtype=f32))
+        d = _scalar(ema_decay, p.device).reshape(())
+        e_new = ema * d + p_new * (1 - d)
         new.append((ema, e_new))
     for old, value in new:
         old.copy_(value if ok is None else torch.where(ok, value, old))
@@ -91,17 +112,17 @@ def _library():
     lib = load_library('fused_adamw').lib
     p, i64, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
     lib.timm_fused_adamw.argtypes = (
-        [p, p, p, ctypes.c_int, p, p, i64, i64] + [f] * 10 + [p, p, p, p])
+        [p, p, p, ctypes.c_int, p, p, i64, i64] + [f] * 7 + [p] * 6)
     lib.timm_fused_adamw.restype = ctypes.c_int
     lib.timm_fused_adamw_error_string.argtypes = [ctypes.c_int]
     lib.timm_fused_adamw_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_contract(p, g, m, v, ema, count, grad_scale, ok, n_decay):
-    named = dict(p=p, g=g, m=m, v=v, count=count)
+def _check_contract(p, g, m, v, ema, count, lr, ema_decay, grad_scale, ok, n_decay):
+    named = dict(p=p, g=g, m=m, v=v, count=count, lr=lr)
     if ema is not None:
-        named['ema'] = ema
+        named.update(ema=ema, ema_decay=ema_decay)
     for k, t in (('grad_scale', grad_scale), ('ok', ok)):
         if t is not None:
             named[k] = t
@@ -129,8 +150,10 @@ def _check_contract(p, g, m, v, ema, count, grad_scale, ok, n_decay):
         raise ValueError(f'n_decay {n_decay} outside [0, {n}]')
     if count.dtype != torch.int32 or count.numel() != 1:
         raise NotImplementedError('fused_adamw kernel: count must be one int32 element')
-    if grad_scale is not None and (grad_scale.dtype != torch.float32 or grad_scale.numel() != 1):
-        raise NotImplementedError('fused_adamw kernel: grad_scale must be one fp32 element')
+    for k, t in (('lr', lr), ('ema_decay', ema_decay if ema is not None else None),
+                 ('grad_scale', grad_scale)):
+        if t is not None and (t.dtype != torch.float32 or t.numel() != 1):
+            raise NotImplementedError(f'fused_adamw kernel: {k} must be one fp32 element')
     if ok is not None and (ok.dtype != torch.bool or ok.numel() != 1):
         raise NotImplementedError('fused_adamw kernel: ok must be one bool element')
 
@@ -142,7 +165,7 @@ def _check_devices_cpu(*tensors):
 
 def _launch(p, g, m, v, ema, count, lr, b1, b2, eps, weight_decay, n_decay, ema_decay,
             grad_scale, ok):
-    c = _consts(b1, b2, ema_decay)
+    c = _consts(b1, b2)
     lib = _library()
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
@@ -150,8 +173,8 @@ def _launch(p, g, m, v, ema, count, lr, b1, b2, eps, weight_decay, n_decay, ema_
             p.data_ptr(), g.data_ptr(), m.data_ptr(), int(m.dtype == torch.bfloat16),
             v.data_ptr(), None if ema is None else ema.data_ptr(),
             p.numel(), n_decay if weight_decay else 0,
-            lr, b1, c['one_minus_b1'], c['b1_bf16'], b2, c['one_minus_b2'], eps, weight_decay,
-            c['decay'], c['one_minus_decay'], count.data_ptr(),
+            b1, c['one_minus_b1'], c['b1_bf16'], b2, c['one_minus_b2'], eps, weight_decay,
+            lr.data_ptr(), None if ema is None else ema_decay.data_ptr(), count.data_ptr(),
             None if grad_scale is None else grad_scale.data_ptr(),
             None if ok is None else ok.data_ptr(), stream)
     if rc != 0:
@@ -161,22 +184,26 @@ def _launch(p, g, m, v, ema, count, lr, b1, b2, eps, weight_decay, n_decay, ema_
     count.add_(1 if ok is None else ok.to(count.dtype))
 
 
-def fused_adamw(p, g, m, v, ema, count, *, lr: float, b1: float = 0.9, b2: float = 0.999,
+def fused_adamw(p, g, m, v, ema, count, *, lr, b1: float = 0.9, b2: float = 0.999,
                 eps: float = 1e-8, weight_decay: float = 0.0, n_decay: int = 0,
-                ema_decay: float = 0.0, grad_scale: Optional[torch.Tensor] = None,
+                ema_decay=0.0, grad_scale: Optional[torch.Tensor] = None,
                 ok: Optional[torch.Tensor] = None) -> None:
-    """AdamW (+ EMA when ``ema`` is given) over flat buffers, in place."""
+    """AdamW (+ EMA when ``ema`` is given) over flat buffers, in place;
+    ``lr`` and ``ema_decay`` are one-element fp32 tensors (or floats)."""
     n_decay = int(n_decay)
     if p.device.type == 'cpu':
-        _check_devices_cpu(p, g, m, v, ema, count)
+        _check_devices_cpu(p, g, m, v, ema, count, *(t for t in (lr, ema_decay)
+                                                      if isinstance(t, torch.Tensor)))
         return fused_adamw_reference(
             p, g, m, v, ema, count, lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
             n_decay=n_decay, ema_decay=ema_decay, grad_scale=grad_scale, ok=ok)
     if p.device.type != 'cuda':
         raise NotImplementedError(f'fused_adamw runs on cuda or cpu tensors; got {p.device}')
-    _check_contract(p, g, m, v, ema, count, grad_scale, ok, n_decay)
-    _launch(p, g, m, v, ema, count, float(lr), float(b1), float(b2), float(eps),
-            float(weight_decay), n_decay, float(ema_decay), grad_scale, ok)
+    lr = _scalar(lr, p.device)
+    ema_decay = _scalar(ema_decay, p.device) if ema is not None else None
+    _check_contract(p, g, m, v, ema, count, lr, ema_decay, grad_scale, ok, n_decay)
+    _launch(p, g, m, v, ema, count, lr, float(b1), float(b2), float(eps),
+            float(weight_decay), n_decay, ema_decay, grad_scale, ok)
 
 
 fused_adamw.launches = 0
@@ -231,7 +258,10 @@ def _registry_inputs(seed: int = 0, device='cuda', sizes=((64, 256), (256,), (8,
     v = flat(0.1, lambda x: np.abs(x) * np.float32(1e-3))
     p, g, ema = flat(1.0), flat(0.1), flat(1.0)
     count = torch.tensor(3, dtype=torch.int32, device=device)
-    return dict(p=p, g=g, m=m, v=v, ema=ema, count=count, lr=0.02, ema_decay=0.999,
+    # lr and the EMA decay are device scalars, as the JAX registry passes
+    # jnp.asarray scalars
+    lr, ema_decay = (torch.tensor(x, dtype=torch.float32, device=device) for x in (0.02, 0.999))
+    return dict(p=p, g=g, m=m, v=v, ema=ema, count=count, lr=lr, ema_decay=ema_decay,
                 n_decay=n_decay)
 
 
@@ -267,10 +297,11 @@ def _registry_library(p, g, m, v, ema, count, *, lr, ema_decay, n_decay, weight_
             groups.append({'params': [t], 'weight_decay': wd})
             emas.append(ema[part].clone())
     opt = torch.optim.AdamW(groups, lr=lr, betas=(b1, b2), eps=eps, fused=True, capturable=True)
+    weight = [1 - ema_decay] * len(emas)
 
     def library_step():
         opt.step()
-        torch._foreach_lerp_(emas, params, 1 - ema_decay)
+        torch._foreach_lerp_(emas, params, weight)
     return library_step
 
 

@@ -6,6 +6,11 @@ model builder or the training task sets with ``set_drop_generator``), never
 from torch's global RNG; a module asked to drop without one raises, as flax's
 ``Dropout`` does without ``rngs``.
 
+A compiled train step (``utils/cuda_graph.py``) registers the generator
+with its CUDA graph, so each replay draws new masks and advances the
+generator exactly as an eager step does; ``get_state`` / ``set_state``
+(what a checkpoint keeps) stay valid between replays.
+
 Kept values are computed as the JAX package computes them:
 ``where(mask, x / keep_prob, 0)`` with ``keep_prob`` rounded to x's dtype
 (JAX's weakly typed scalar), so a bf16 activation is divided by

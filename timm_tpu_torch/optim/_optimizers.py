@@ -10,12 +10,19 @@ optimizer state (AdamW's m and v, SGD's trace, the EMA) lives in flat
 buffers of the same layout, and one AdamW step over every leaf is one launch
 of the fused AdamW + EMA kernel (``kernels/fused_adamw.py``).
 
+The learning rate and the EMA decay live on the device: ``lr_t`` and
+``ema_decay_t``, one fp32 element each, which ``step`` reads and
+``set_hyperparams(lr, ema_decay)`` writes (a fill on the device, no
+host-to-device copy). So a CUDA graph that captured ``step`` takes each
+replay's values, as the TPU kernel reads them from SMEM. The host ``lr``
+is the last one written, what the checkpoint records as
+``learning_rate``, as optax's ``inject_hyperparams`` keeps it.
 ``step(lr, grad_scale, ok, ema_decay)`` takes what the train step computes
-on the device: the clip factor, the non-finite guard's flag and the EMA
-decay; with ``ok`` false nothing changes. A learning rate given to ``step``
-is kept as ``lr``, as optax's ``inject_hyperparams`` keeps the last one.
-Moving the model after building the optimizer breaks the views and makes
-``step`` raise.
+on the device: the clip factor and the non-finite guard's flag; with
+``ok`` false nothing changes. An ``lr`` or ``ema_decay`` given to ``step``
+is written first (an eager convenience: inside a graph capture write them
+before it). Moving the model after building the optimizer breaks the views
+and makes ``step`` raise.
 
 ``state_arrays`` / ``load_state_arrays`` give the state as a flat
 ``{key: np.ndarray}`` in the parameters' own names and layout: ``count``,
@@ -75,6 +82,8 @@ class _FlatOptimizer:
                 p.grad = self._view(self.flat_grad, name)
         self.ema: Optional[torch.Tensor] = None
         self.count = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.lr_t = torch.full((), float(lr), dtype=torch.float32, device=self.device)
+        self.ema_decay_t = torch.zeros((), dtype=torch.float32, device=self.device)
 
     def _view(self, flat: torch.Tensor, name: str) -> torch.Tensor:
         offset, shape = self._slots[name]
@@ -116,14 +125,19 @@ class _FlatOptimizer:
         self.ema = self.flat_param.clone()
         return self.views(self.ema)
 
-    def step(self, lr: Optional[float] = None, grad_scale: Optional[torch.Tensor] = None,
-             ok: Optional[torch.Tensor] = None, ema_decay: float = 0.0) -> None:
-        raise NotImplementedError
-
-    def _take_lr(self, lr: Optional[float]) -> float:
+    def set_hyperparams(self, lr: Optional[float] = None,
+                        ema_decay: Optional[float] = None) -> None:
+        """Write the learning rate and the EMA decay the next ``step``
+        reads into their device scalars, in place."""
         if lr is not None:
             self.lr = float(lr)
-        return self.lr
+            self.lr_t.fill_(self.lr)
+        if ema_decay is not None:
+            self.ema_decay_t.fill_(float(ema_decay))
+
+    def step(self, lr: Optional[float] = None, grad_scale: Optional[torch.Tensor] = None,
+             ok: Optional[torch.Tensor] = None, ema_decay: Optional[float] = None) -> None:
+        raise NotImplementedError
 
     def slots(self) -> Dict[str, torch.Tensor]:
         """The per-leaf state buffers by slot name."""
@@ -188,7 +202,7 @@ class _FlatOptimizer:
         if 'count' in state:
             self.count.fill_(int(np.asarray(state['count'])))
         if 'learning_rate' in state:
-            self.lr = float(np.asarray(state['learning_rate']))
+            self.set_hyperparams(lr=float(np.asarray(state['learning_rate'])))
 
 
 class AdamW(_FlatOptimizer):
@@ -211,12 +225,13 @@ class AdamW(_FlatOptimizer):
     def slots(self):
         return {'mu': self.m, 'nu': self.v}
 
-    def step(self, lr=None, grad_scale=None, ok=None, ema_decay=0.0):
+    def step(self, lr=None, grad_scale=None, ok=None, ema_decay=None):
+        self.set_hyperparams(lr, ema_decay)
         self.sync_grads()
         fused_adamw(self.flat_param, self.flat_grad, self.m, self.v, self.ema, self.count,
-                    lr=self._take_lr(lr), b1=self.b1, b2=self.b2, eps=self.eps,
+                    lr=self.lr_t, b1=self.b1, b2=self.b2, eps=self.eps,
                     weight_decay=self.weight_decay, n_decay=self.n_decay,
-                    ema_decay=ema_decay, grad_scale=grad_scale, ok=ok)
+                    ema_decay=self.ema_decay_t, grad_scale=grad_scale, ok=ok)
 
 
 class SGD(_FlatOptimizer):
@@ -235,7 +250,8 @@ class SGD(_FlatOptimizer):
     def slots(self):
         return {} if self.trace is None else {'trace': self.trace}
 
-    def step(self, lr=None, grad_scale=None, ok=None, ema_decay=0.0):
+    def step(self, lr=None, grad_scale=None, ok=None, ema_decay=None):
+        self.set_hyperparams(lr, ema_decay)
         self.sync_grads()
         p = self.flat_param
         f32 = torch.float32
@@ -249,12 +265,11 @@ class SGD(_FlatOptimizer):
             trace = g + mom * self.trace
             g = g + mom * trace if self.nesterov else trace
             new.append((self.trace, trace))
-        lr = self._take_lr(lr)
-        p_new = p + torch.tensor(-lr, dtype=f32) * g
+        p_new = p + torch.neg(self.lr_t) * g
         new.append((p, p_new))
         new.append((self.count, self.count + 1))
         if self.ema is not None:
-            d = torch.tensor(ema_decay, dtype=f32)
+            d = self.ema_decay_t
             new.append((self.ema, self.ema * d + p_new * (1 - d)))
         for old, value in new:
             old.copy_(value if ok is None else torch.where(ok, value, old))

@@ -66,9 +66,13 @@ def new_sentinel_state(device=None) -> torch.Tensor:
 
 
 def update_sentinel_state(state: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """Count a step into the carried ``[consecutive, total]`` counters, in
+    place (a CUDA graph holds their address; JAX donates them), and
+    return them."""
     bad = torch.logical_not(ok).to(torch.int32)
     consecutive = torch.where(ok, torch.zeros_like(state[0]), state[0] + 1)
-    return torch.stack([consecutive, state[1] + bad])
+    state.copy_(torch.stack([consecutive, state[1] + bad]))
+    return state
 
 
 class NonFiniteSentinel:

@@ -58,6 +58,7 @@ import torch
 
 from .._device import resolve_device
 from ..kernels import _build, registry
+from ..utils.cuda_graph import pool_bytes
 from .bucketing import DEFAULT_BUCKETS, pad_rows, select_bucket, strip_rows, validate_buckets
 from .queueing import RequestQueue, ServeFuture
 from .residency import ModelPool, ResidentModel
@@ -65,13 +66,6 @@ from .residency import ModelPool, ResidentModel
 _logger = logging.getLogger(__name__)
 
 __all__ = ['InferenceEngine']
-
-
-def _pool_bytes(pool) -> int:
-    """Device bytes of the caching allocator's segments that belong to the
-    graph memory pool ``pool`` (its id is unique in the process)."""
-    return sum(seg['total_size'] for seg in torch.cuda.memory_snapshot()
-               if tuple(seg['segment_pool_id']) == tuple(pool))
 
 
 class BucketGraph:
@@ -188,7 +182,7 @@ class InferenceEngine:
                 bucket_ms[bucket] = (time.perf_counter() - tb) * 1e3
             if pool is not None:
                 torch.cuda.synchronize(self.device)
-                res.graph_bytes = _pool_bytes(pool) + sum(
+                res.graph_bytes = pool_bytes(pool) + sum(
                     g.static_in.numel() * g.static_in.element_size() for g in res.compiled.values())
         new = [lib for key, lib in _build.loaded_libraries().items() if key not in loaded]
         stats = {'programs': len(res.compiled) if pool is not None else len(self.buckets),

@@ -1,16 +1,33 @@
 """Training task (counterpart of timm_tpu/task/task.py), one device, no mesh.
 
 The task owns the model, the optimizer, the EMA schedule and the non-finite
-guard, and runs the JAX package's train step in eager PyTorch, in the same
-order: gradients (averaged over ``grad_accum_steps`` microbatches), the raw
-global ``grad_norm``, clipping, the optimizer update, the guard, the EMA.
-Two of those happen inside the optimizer's update, because the update is in
-place: the norm clip factor scales the gradients inside the AdamW kernel,
-and the guard's device flag leaves parameters, moments, step count and EMA
+guard, and runs the JAX package's train step in the same order: gradients
+(averaged over ``grad_accum_steps`` microbatches), the raw global
+``grad_norm``, clipping, the optimizer update, the guard, the EMA. Two of
+those happen inside the optimizer's update, because the update is in place:
+the norm clip factor scales the gradients inside the AdamW kernel, and the
+guard's device flag leaves parameters, moments, step count and EMA
 untouched on a bad step, where JAX selects the old values afterwards. The
-EMA itself is a buffer of the optimizer, updated in the same pass. No value
-is read back to the host except the guard's counters, which the sentinel
-polls as in the JAX package.
+EMA itself is a buffer of the optimizer, updated in the same pass.
+
+Compiled steps. JAX jits its train and eval steps, always; the port's
+counterpart is one CUDA graph per input signature
+(``utils/cuda_graph.py``), always on for a task on CUDA. ``train_step`` is
+three parts: (a) on the host, the batch is staged into the graph's static
+inputs (NumPy batches through pinned memory, device batches by a device
+copy) and the learning rate and ``ema.get_decay(step)`` are written into
+the optimizer's device scalars; (b) the step body, ``_train_body``, from
+``normalize_input`` to the guard's counters, replayed as one graph (on the
+CPU it runs eagerly); (c) after the replay, the sentinel polls the counters
+on the host and the metrics come back as clones. The first call of an input
+signature runs the body eagerly (the warm-up, a real step), the second
+captures and replays it, so every call is one step. The body reads nothing
+back to the host; the drop-path generator is registered with the graph, so
+each replay draws new masks. ``eval_step`` is graphed the same way, one
+graph per input signature and ``use_ema``. The graphs hold the addresses of
+the parameters and the optimizer's buffers: everything updates in place,
+and ``setup_ema`` drops them, as JAX drops its jitted step. Like JAX's,
+they bake in the task's configuration (``grad_accum_steps``, clipping).
 
 Checkpoint state (``get_checkpoint_state`` / ``load_checkpoint_state``) is
 the JAX package's single flat dict with its prefixes: ``state_dict.*``,
@@ -18,9 +35,10 @@ the JAX package's single flat dict with its prefixes: ``state_dict.*``,
 names and torch layout (``utils/serialization.py``), plus the drop-path /
 dropout generator's state under ``_resume.drop_rng_state``, which JAX does
 not need because it keys its dropout streams by step. Loading copies into
-the parameters and the optimizer's flat buffers in place.
-``models/_jax_convert.py`` turns a JAX task checkpoint into this form.
-Sharded placement is not ported (ROADMAP A.5.11).
+the parameters, the optimizer's flat buffers and scalars and the generator
+in place, so the graphs survive a resume. ``models/_jax_convert.py`` turns
+a JAX task checkpoint into this form. Sharded placement is not ported
+(ROADMAP A.5.11).
 """
 from __future__ import annotations
 
@@ -37,6 +55,7 @@ from ..resilience import (
 )
 from ..utils.serialization import add_prefix, load_module_arrays, module_arrays, split_prefix
 from ..utils.clip_grad import clip_scale, dispatch_clip_grad, global_grad_norm
+from ..utils.cuda_graph import StepGraphs
 from ..utils.model_ema import ModelEmaV3
 
 __all__ = ['Normalize', 'TrainingTask']
@@ -87,6 +106,12 @@ class TrainingTask:
         self._normalize = Normalize(mean, std, self.device) if mean is not None else None
         self.ema: Optional[ModelEmaV3] = None
         self.ema_params: Optional[Dict[str, torch.Tensor]] = None
+        self.train_graphs = StepGraphs(self._train_body, self.device,
+                                       generators=self._drop_generators)
+        self.eval_graphs = StepGraphs(self._eval_body, self.device)
+
+    def _drop_generators(self) -> List[Optional[torch.Generator]]:
+        return [get_drop_generator(self.model)]
 
     # -- overridables --------------------------------------------------------
     def loss_forward(self, model: nn.Module, batch: Dict[str, Any]):
@@ -105,26 +130,43 @@ class TrainingTask:
     # -- setup ---------------------------------------------------------------
     def setup_ema(self, decay: float = 0.9999, warmup: bool = False, **kwargs):
         """Start the EMA as a copy of the parameters, kept by the optimizer
-        in the layout of its flat buffers; ``ema_params`` maps names to it."""
+        in the layout of its flat buffers; ``ema_params`` maps names to it.
+        The EMA's presence is part of the train step: its graphs go."""
         if self.optimizer is None:
             raise RuntimeError('setup_ema needs the optimizer: the EMA lives in its buffers')
         self.ema = ModelEmaV3(decay=decay, use_warmup=warmup, **kwargs)
         self.ema_params = self.optimizer.init_ema()
+        self.train_graphs.clear()
+        self.eval_graphs.clear()
 
     # -- steps -----------------------------------------------------------------
-    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                if not isinstance(v, (int, float)) else v for k, v in batch.items()}
+    @staticmethod
+    def _split(batch: Dict[str, Any]):
+        """(arrays and tensors, the other entries as a hashable tuple)."""
+        tensors = {k: v for k, v in batch.items() if not isinstance(v, (int, float))}
+        return tensors, tuple(sorted((k, v) for k, v in batch.items() if k not in tensors))
 
     def train_step(self, batch: Dict[str, Any], lr: float, step: int = 0) -> Dict[str, torch.Tensor]:
         """One optimization step; ``batch['input']`` is NHWC. Returns device
-        tensors: ``loss``, ``grad_norm`` and, with the guard on,
-        ``nonfinite``, ``nonfinite_count`` and ``nonfinite_total``."""
+        tensors of its own (clones): ``loss``, ``grad_norm`` and, with the
+        guard on, ``nonfinite``, ``nonfinite_count`` and ``nonfinite_total``."""
         if self.optimizer is None:
             raise RuntimeError('TrainingTask.train_step requires an optimizer')
-        opt = self.optimizer
+        self.optimizer.set_hyperparams(
+            lr=lr, ema_decay=self.ema.get_decay(step) if self.ema is not None else 0.0)
         self.model.train()
-        batch = self.normalize_input(self._to_device(batch))
+        tensors, others = self._split(batch)
+        metrics = self.train_graphs(tensors, others)
+        if self._nonfinite_guard:
+            self.sentinel.observe(self._sentinel_state, step=step)
+        return metrics
+
+    def _train_body(self, tensors: Dict[str, torch.Tensor], others=()) -> Dict[str, torch.Tensor]:
+        """The step on the device, as a CUDA graph captures it: it reads the
+        learning rate and EMA decay from the optimizer's device scalars and
+        reads nothing back to the host."""
+        opt = self.optimizer
+        batch = self.normalize_input(dict(tensors, **dict(others)))
         accum = self.grad_accum_steps
         opt.zero_grad()
         if accum > 1:
@@ -167,29 +209,33 @@ class TrainingTask:
         # grads; with norm clipping (factor <= 1, NaN from a NaN norm) that
         # is the same flag as over the raw grads
         ok = tree_all_finite(loss, grads) if self._nonfinite_guard else None
-        ema_decay = self.ema.get_decay(step) if self.ema is not None else 0.0
-        opt.step(lr=lr, grad_scale=scale, ok=ok, ema_decay=ema_decay)
+        opt.step(grad_scale=scale, ok=ok)
 
         metrics = {'loss': loss, 'grad_norm': grad_norm}
         if self._nonfinite_guard:
-            self._sentinel_state = update_sentinel_state(self._sentinel_state, ok)
-            metrics['nonfinite'] = self._sentinel_state[0] > 0
-            metrics['nonfinite_count'] = self._sentinel_state[0]
-            metrics['nonfinite_total'] = self._sentinel_state[1]
-            self.sentinel.observe(self._sentinel_state, step=step)
+            state = update_sentinel_state(self._sentinel_state, ok)
+            metrics['nonfinite'] = state[0] > 0
+            metrics['nonfinite_count'] = state[0]
+            metrics['nonfinite_total'] = state[1]
         return metrics
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, Any], use_ema: bool = False):
+        """The model's output on ``batch`` (a clone), with the EMA weights
+        when ``use_ema`` and the task has them."""
         self.model.eval()
         try:
-            batch = self.normalize_input(self._to_device(batch))
-            if use_ema and self.ema_params is not None:
-                return torch.func.functional_call(
-                    self.model, self.ema_params, (batch['input'],), strict=False)
-            return self.eval_forward(self.model, batch)
+            tensors, others = self._split(batch)
+            return self.eval_graphs(tensors, others, bool(use_ema and self.ema_params is not None))
         finally:
             self.model.train()
+
+    def _eval_body(self, tensors: Dict[str, torch.Tensor], others=(), use_ema: bool = False):
+        batch = self.normalize_input(dict(tensors, **dict(others)))
+        if use_ema:
+            return torch.func.functional_call(
+                self.model, self.ema_params, (batch['input'],), strict=False)
+        return self.eval_forward(self.model, batch)
 
     # -- checkpoint ------------------------------------------------------------
     def checkpoint_keys(self) -> List[str]:

@@ -136,6 +136,7 @@ def validate(args, predictions=None):
     from .serve import batch_bucket, pad_rows
     from .task import Normalize
     from .utils import AverageMeter, eval_metrics
+    from .utils.cuda_graph import StepGraphs
 
     check_unported(args)
     device = resolve_device(args.device)
@@ -146,9 +147,14 @@ def validate(args, predictions=None):
     _, loader = eval_loader(args, data_config, device)
     normalize = Normalize(data_config['mean'], data_config['std'], device)
 
+    # the jitted eval step's counterpart: one CUDA graph per input shape
+    # (eager on the CPU)
+    eval_graphs = StepGraphs(
+        lambda b: eval_metrics(model(normalize(b['x'])), b['target'], b['valid']), device)
+
     @torch.no_grad()
     def eval_step(x, target, valid):
-        return eval_metrics(model(normalize(x)), target, valid)
+        return eval_graphs({'x': x, 'target': target, 'valid': valid})
 
     # one bucket shape for the whole eval: the last, partial batch pads up
     # to the shape of every other
@@ -158,9 +164,7 @@ def validate(args, predictions=None):
     for batch_idx, (x, t) in enumerate(loader):
         n = int(x.shape[0])
         x, t, valid = pad_rows(x, bucket, t)
-        x = torch.as_tensor(x).to(device)
-        t = torch.as_tensor(t).to(device)
-        loss, acc1, acc5, top = eval_step(x, t, torch.from_numpy(valid).to(device))
+        loss, acc1, acc5, top = eval_step(x, t, valid)  # staged into the graph's inputs
         if predictions is not None:
             predictions.extend(top[:n].flip(-1).cpu().tolist())
         loss_m.update(float(loss), n)
