@@ -19,7 +19,13 @@ with lr and EMA decay changing every step and a skipped non-finite step;
 eager against replayed step ms and idle share; the eval graph against the
 eager forward), and trains it again from a folder of seeded PNGs through the
 port's input path (threaded loader, CUDA-stream prefetcher, mixup, cutmix
-and erasing sampled on the host, the augment-epilogue kernel). Last, phase
+and erasing sampled on the host, the augment program's CUDA graph with the
+augment-epilogue kernel). Phase ``recipe_train`` trains it with ViT-B/16's
+timm / DeiT recipe (RandAugment on the host, 'pixel' erasing and Mixup /
+CutMix on the card, the augment program's graph running its torch
+program), holds the augment program's replays against its eager run in
+every erase mode, checks the erased pixels' statistics and a resumed
+epoch's batches, and runs an AugMix arm with the JSD loss. Last, phase
 ``drivers`` runs the port's command-line drivers through their
 ``main(argv)``: ``train`` from a folder of PNGs uninterrupted (A), stopped
 by an injected SIGTERM after update 12 (B) and resumed with ``--resume
@@ -885,10 +891,12 @@ def _write_image_folder(root: str, per_class: int, seed: int = 0):
     return len(jobs)
 
 
-def _input_loader(root, data_config, device, seed=0, num_workers=INPUT_WORKERS, no_aug=False):
+def _input_loader(root, data_config, device, seed=0, num_workers=INPUT_WORKERS, no_aug=False,
+                  auto_augment=None, re_mode='const'):
     """The recipe's loader: create_dataset over the folder, create_loader
-    with device_augment (erasing 0.25 'const', Mixup 0.8 / CutMix 1.0 with
-    label smoothing 0.1) and device_prefetch 2."""
+    with device_augment (erasing 0.25 ``re_mode``, Mixup 0.8 / CutMix 1.0
+    with label smoothing 0.1, ``auto_augment`` in place of colour jitter)
+    and device_prefetch 2."""
     import torch
     from timm_tpu_torch.data import Mixup, create_loader
     from timm_tpu_torch.data.dataset_factory import create_dataset
@@ -896,7 +904,7 @@ def _input_loader(root, data_config, device, seed=0, num_workers=INPUT_WORKERS, 
                   seed=seed)
     return create_loader(
         create_dataset('', root, split='train'), data_config['input_size'], TRAIN_BATCH,
-        is_training=True, no_aug=no_aug, re_prob=0.25, re_mode='const',
+        is_training=True, no_aug=no_aug, re_prob=0.25, re_mode=re_mode, auto_augment=auto_augment,
         interpolation=data_config['interpolation'], mean=data_config['mean'],
         std=data_config['std'], num_workers=num_workers, seed=seed, device_augment=True,
         device_prefetch=2, mixup=mixup, device=torch.device(device))
@@ -911,7 +919,7 @@ def _batches(loader):
         epoch += 1
 
 
-def _host_ms_per_image(root, data_config, n: int = 64):
+def _host_ms_per_image(root, data_config, n: int = 64, auto_augment=None):
     """Host time per image of each stage of the train transform, one thread:
     decode (the dataset with no transform), then each transform in turn."""
     import random
@@ -921,8 +929,9 @@ def _host_ms_per_image(root, data_config, n: int = 64):
     ds = create_dataset('', root, split='train')
     tf = create_transform(data_config['input_size'], is_training=True,
                           interpolation=data_config['interpolation'], mean=data_config['mean'],
-                          std=data_config['std'], output_dtype=np.uint8)
+                          std=data_config['std'], output_dtype=np.uint8, auto_augment=auto_augment)
     random.seed(0)
+    np.random.seed(0)
     ms = {'decode': 0.0}
     for i in range(n):
         t = time.perf_counter()
@@ -956,9 +965,10 @@ def phase_input_train(train_step_ms: float):
     since the stage normalises) for 20 steps at batch 64 from a folder of
     seeded PNGs through create_dataset -> create_loader (threaded decode and
     transforms, DevicePrefetcher(size=2), DeviceAugmentStage with Mixup /
-    CutMix and RandomErasing sampled on the host, the augment-epilogue
-    kernel); the train step is a graph from step 2 on. The wrappers' launch
-    counts are read around this run only. Then: a profiler breakdown over 3
+    CutMix and RandomErasing sampled on the host, the augment program with
+    the augment-epilogue kernel); the train step and the augment program
+    are graphs from step 2 on. The wrappers' launch counts are read around
+    this run only. Then: a profiler breakdown over 3
     steps, which counts the kernels they ran, the input path's own rate over 2 epochs
     without training, and a card stage and a CPU stage over the same
     deterministic loader, which must agree."""
@@ -1082,8 +1092,8 @@ def phase_input_train(train_step_ms: float):
            'loader_only_wait_ms_per_batch': loader_wait_ms,
            'host_ms_per_image_one_thread': host_ms,
            'peak_memory_gb': peak_gb,
-           # the wrappers' counts: flash and fused_adamw at the train step's
-           # warm-up and capture only, augment_epilogue (eager) every step
+           # the wrappers' counts: at the warm-up and capture of the train
+           # step's and the augment program's graphs only
            'wrapper_launches_per_step': per_step, 'launches': launches,
            'profiled_steps': reps, 'wall_ms_per_step_profiled': prof_wall_ms,
            'kernels_per_profiled_step': replayed if kernels else 'not measured',
@@ -1095,22 +1105,363 @@ def phase_input_train(train_step_ms: float):
            'nonfinite_total': int(metrics[-1]['nonfinite_total'])}
     emit(row)
     check(all(np.isfinite(losses)), f'input_train: non-finite loss in {losses}')
-    check([p[2] for p in per_step] == [1] * TRAIN_STEPS,
-          f'input_train: augment_epilogue launches per step {[p[2] for p in per_step]}')
     graphed = [1, 1] + [0] * (TRAIN_STEPS - 2)
+    check([p[2] for p in per_step] == graphed,
+          f'input_train: augment_epilogue wrapper launches per step {[p[2] for p in per_step]}')
     check([p[1] for p in per_step] == graphed,
           f'input_train: fused_adamw wrapper launches per step {[p[1] for p in per_step]}')
     check([p[0] for p in per_step] == [depth * c for c in graphed],
           f'input_train: flash wrapper launches per step {[p[0] for p in per_step]}')
-    # the prefetcher augments batches ahead of the steps, so how many of its
-    # (eager) epilogue launches fall in the profiled window depends on timing;
-    # its count per step is the wrapper's, checked above
+    # the stage augments a batch when the step asks for it: its replayed
+    # epilogue kernels fall in the profiled window
     check(bool(kernels) and replayed['flash_attention'] == depth
           and replayed['fused_adamw'] == 1 and replayed['augment_epilogue'] > 0,
           f'input_train: a profiled step ran {replayed}')
     check(stage_err <= AUGMENT_TOL, f'input_train: card vs CPU stage max abs err {stage_err}')
     del task, model, opt, loader
     torch.cuda.empty_cache()
+    return launches
+
+
+# phase recipe_train: ViT-B/16's timm / DeiT recipe through the port's input
+# path (RandAugment, 'pixel' erasing, Mixup / CutMix on the card), then an
+# AugMix arm with the JSD loss on the host path
+RECIPE_AA = 'rand-m9-mstd0.5-inc1'
+RECIPE_ODD_BATCH = 37
+# the augment program's replay checks: (epoch, step) keys of 4 calls on a
+# batch A then a batch B three times (a warm-up, a capture, 2 replays)
+RECIPE_KEYS = ((0, 0), (0, 1), (1, 2), (0, 1))
+RECIPE_RESUME_STEPS = (5, 6, 7, 8)   # steps of epoch 1 regenerated as --resume auto does
+RECIPE_STAT_TOL = 0.05               # erased pixels after normalization: mean 0, std 1
+AUGMIX_AA, AUGMIX_SPLITS, AUGMIX_BATCH, AUGMIX_STEPS = 'augmix-m3-w3', 3, 32, 10
+
+
+def _augment_batch(rng, n: int, erasing, mixup, with_fill: bool):
+    """A uint8 batch of n seeded 224 px images and the parameters the
+    recipe's samplers draw for it, as numpy arrays."""
+    batch = {'image': rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8),
+             'target': rng.integers(0, 1000, n)}
+    batch.update(erasing.sample_params(batch['image'].shape))
+    if not with_fill:
+        batch.pop('erase_fill', None)
+    batch.update(mixup.sample_params(batch['image'].shape))
+    return batch
+
+
+def _augment_replays_vs_eager(data_config):
+    """Per erase mode and batch size (64, 37): the augment program through
+    its graphs against the program run eagerly on the same inputs, bit for
+    bit, with RECIPE_KEYS as (epoch, step) keys; in 'pixel' mode the replay
+    of a new key must redraw the noise and a key drawn before must give it
+    again."""
+    import torch
+    from timm_tpu_torch.data import DeviceAugment, Mixup, RandomErasing, noise_generator_seed
+    out = {}
+    for mode in ('const', 'rand', 'pixel'):
+        augment = DeviceAugment(data_config['mean'], data_config['std'], re_mode=mode,
+                                re_mean=data_config['mean'], re_std=data_config['std'],
+                                num_classes=1000, smoothing=0.1, noise_seed=0, device='cuda')
+        rng = np.random.default_rng(len(mode))
+        erasing = RandomErasing(probability=0.5, mode='rand' if mode == 'rand' else 'const',
+                                max_count=2, mean=data_config['mean'], std=data_config['std'],
+                                seed=1)
+        mixup = Mixup(mixup_alpha=0.8, cutmix_alpha=1.0, label_smoothing=0.1, num_classes=1000,
+                      seed=1)
+        rows = {}
+        for n in (TRAIN_BATCH, RECIPE_ODD_BATCH):
+            a = _augment_batch(rng, n, erasing, mixup, mode == 'rand')
+            b = _augment_batch(rng, n, erasing, mixup, mode == 'rand')
+            batches = [a, b, b, b]
+            got = [augment(batch, epoch=e, step=s) for batch, (e, s) in zip(batches, RECIPE_KEYS)]
+            equal = []
+            for batch, (e, s), (x, y) in zip(batches, RECIPE_KEYS, got):
+                if augment.generator is not None:
+                    augment.generator.manual_seed(noise_generator_seed(0, e, s))
+                want_x, want_y = augment._program(
+                    {k: torch.from_numpy(np.asarray(v)).cuda() for k, v in batch.items()}, mode)
+                equal.append(_bit_equal(x, want_x) and _bit_equal(y, want_y))
+            rows[str(n)] = {'replay_equals_eager': equal,
+                            'same_key_same_output': _bit_equal(got[1][0], got[3][0]),
+                            'new_key_new_output': not _bit_equal(got[1][0], got[2][0])}
+        out[mode] = {'batches': rows, 'captures': augment.graphs.captures,
+                     'replays': augment.graphs.replays, 'pool_bytes': augment.graphs.pool_bytes()}
+        del augment
+    return out
+
+
+def _erased_pixel_stats(data_config):
+    """The 'pixel' program alone (no mixup) on a seeded batch of 64 with a
+    box in every row: per-channel mean and std of the erased pixels after
+    normalization, (re_mean + re_std N(0, 1) - mean) / std with re_mean and
+    re_std the normalization's, so N(0, 1)."""
+    import torch
+    from timm_tpu_torch.data import DeviceAugment, RandomErasing
+    augment = DeviceAugment(data_config['mean'], data_config['std'], re_mode='pixel',
+                            re_mean=data_config['mean'], re_std=data_config['std'], noise_seed=0,
+                            device='cuda')
+    erasing = RandomErasing(probability=1.0, mode='pixel', mean=data_config['mean'],
+                            std=data_config['std'], seed=2)
+    image = np.random.default_rng(3).integers(0, 256, (TRAIN_BATCH, 224, 224, 3), dtype=np.uint8)
+    batch = {'image': image, 'target': np.zeros(TRAIN_BATCH, np.int64),
+             **erasing.sample_params(image.shape)}
+    x, _ = augment(batch, epoch=0, step=0)
+    mask = np.zeros(image.shape[:3], bool)
+    for i, (top, left, eh, ew) in enumerate(batch['erase_box'][:, 0]):
+        mask[i, top:top + eh, left:left + ew] = True
+    erased = x[torch.from_numpy(mask).cuda()].double()
+    return {'erased_pixels': int(mask.sum()), 'mean': erased.mean(0).tolist(),
+            'std': erased.std(0).tolist()}
+
+
+def _jsd_graph_vs_eager(batches, data_config):
+    """ViT-B/16 (bf16, drop_path 0.1, clip 1.0, EMA 0.9998 with warmup, the
+    task normalizing) with JsdCrossEntropy(3 splits, smoothing 0.1) from one
+    state: AUGMIX_STEPS eager steps of the step body against as many
+    ``train_step`` calls (a warm-up, a capture, replays) on the same AugMix
+    batches, every metric, buffer and the drop generator's state compared
+    with torch.equal; replayed step ms (CUDA events, steps 3-10)."""
+    import torch
+    import timm_tpu_torch
+    from timm_tpu_torch.layers.drop import get_drop_generator
+    from timm_tpu_torch.loss import JsdCrossEntropy
+    task = _train_task(0, 'cuda', torch.bfloat16, 0.1, clip_grad=1.0, mean=data_config['mean'],
+                       std=data_config['std'])
+    task.train_loss_fn = JsdCrossEntropy(num_splits=AUGMIX_SPLITS, smoothing=0.1)
+    task.setup_ema(decay=0.9998, warmup=True)
+    gen = get_drop_generator(task.model)
+    sched, _ = timm_tpu_torch.create_scheduler_v2(
+        TRAIN_LR, 'cosine', num_epochs=AUGMIX_STEPS, warmup_epochs=3, warmup_lr=1e-6)
+    lrs = [sched.step(i)[0] for i in range(AUGMIX_STEPS)]
+    on_card = [{k: torch.from_numpy(v).cuda() for k, v in b.items()} for b in batches]
+
+    def eager_step(i):
+        task.optimizer.set_hyperparams(lr=lrs[i], ema_decay=task.ema.get_decay(i + 1))
+        task.model.train()
+        metrics = {k: v.clone() for k, v in task._train_body(on_card[i]).items()}
+        task.sentinel.observe(task._sentinel_state, step=i + 1)
+        return metrics
+
+    def graph_step(i):
+        return task.train_step(batches[i], lr=lrs[i], step=i + 1)
+
+    start_state = [t.clone() for t in _train_state(task)], gen.get_state()
+    runs = {}
+    for mode, fn in (('eager', eager_step), ('graph', graph_step)):
+        for t, v in zip(_train_state(task), start_state[0]):
+            t.copy_(v)
+        gen.set_state(start_state[1])
+        task.sentinel.reset()
+        task.sentinel.total = 0
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        metrics = []
+        for i in range(AUGMIX_STEPS):
+            if i == TRAIN_WARMUP_STEPS:
+                start.record()
+            metrics.append(fn(i))
+        end.record()
+        torch.cuda.synchronize()
+        runs[mode] = {'metrics': metrics, 'state': [t.clone() for t in _train_state(task)],
+                      'gen': gen.get_state(),
+                      'step_ms': start.elapsed_time(end) / (AUGMIX_STEPS - TRAIN_WARMUP_STEPS)}
+    e, g = runs['eager'], runs['graph']
+    names = ['params', 'count', 'lr', 'ema_decay', 'sentinel'] + list(task.optimizer.slots()) + ['ema']
+    differ = [n for n, a, b in zip(names, e['state'], g['state']) if not _bit_equal(a, b)]
+    if not torch.equal(e['gen'], g['gen']):
+        differ.append('drop_generator')
+    row = {'loss': 'JsdCrossEntropy(num_splits=3, smoothing=0.1)',
+           'losses': [float(m['loss']) for m in g['metrics']],
+           'grad_norms': [float(m['grad_norm']) for m in g['metrics']],
+           'buffers_that_differ': differ,
+           'steps_whose_metrics_differ': [
+               i + 1 for i, (a, b) in enumerate(zip(e['metrics'], g['metrics']))
+               if a.keys() != b.keys() or not all(_bit_equal(a[k], b[k]) for k in a)],
+           'eager_step_ms': e['step_ms'], 'replay_step_ms': g['step_ms'],
+           'replay_img_per_s': AUGMIX_BATCH * AUGMIX_SPLITS / g['step_ms'] * 1e3,
+           'captures': task.train_graphs.captures, 'replays': task.train_graphs.replays,
+           'graph_pool_bytes': task.train_graphs.pool_bytes(),
+           'peak_memory_gb': torch.cuda.max_memory_allocated() / 2 ** 30}
+    del task
+    return row
+
+
+def phase_recipe_train():
+    """ViT-B/16's training recipe in timm and DeiT through the port: the
+    task of phase input_train (bf16 compute, fp32 params, AdamW, clip 1.0,
+    EMA, SoftTargetCrossEntropy) for 20 steps at batch 64 from the folder
+    of seeded PNGs through create_loader with RandAugment
+    ('rand-m9-mstd0.5-inc1'), erasing 0.25 in 'pixel' mode and Mixup 0.8 /
+    CutMix 1.0 on the card (the augment program's graph: the torch program,
+    no augment-epilogue kernel), the train step a graph from step 2. Then:
+    the loader's rate alone and host ms per image with and without
+    RandAugment; the augment program's replays against its eager run for
+    'const', 'rand' and 'pixel' at batch 64 and 37; the erased pixels'
+    statistics; epoch 1's steps 5-8 regenerated by a fresh loader as
+    ``--resume auto`` regenerates them, against this run's. Last, an AugMix
+    arm on the host path: 'augmix-m3-w3' in 3 splits of 32 images (96 a
+    step), JsdCrossEntropy, 10 graphed steps against the eager body."""
+    import tempfile
+
+    import torch
+
+    import timm_tpu_torch
+    from timm_tpu_torch.data import create_loader, resolve_model_data_config
+    from timm_tpu_torch.data.dataset import AugMixDataset
+    from timm_tpu_torch.data.dataset_factory import create_dataset
+    from timm_tpu_torch.kernels import augment_epilogue, flash_attention, fused_adamw
+    from timm_tpu_torch.loss import SoftTargetCrossEntropy
+    kernels = (flash_attention, fused_adamw, augment_epilogue)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_recipe_') as root:
+        n_images = _write_image_folder(root, INPUT_IMAGES_PER_CLASS)
+        model = timm_tpu_torch.create_model('vit_base_patch16_224', dtype=torch.bfloat16, seed=0,
+                                            drop_path_rate=0.1, device='cuda')
+        data_config = resolve_model_data_config(model)
+        opt = timm_tpu_torch.create_optimizer_v2(model, opt='adamw', lr=TRAIN_LR, weight_decay=0.05)
+        task = timm_tpu_torch.ClassificationTask(
+            model, optimizer=opt, train_loss_fn=SoftTargetCrossEntropy(), seed=0, clip_grad=1.0,
+            mean=None)
+        task.setup_ema(decay=0.9998)
+        sched, _ = timm_tpu_torch.create_scheduler_v2(
+            TRAIN_LR, 'cosine', num_epochs=TRAIN_STEPS, warmup_epochs=3, warmup_lr=1e-6)
+        loader = _input_loader(root, data_config, 'cuda', auto_augment=RECIPE_AA, re_mode='pixel')
+        per_epoch = len(loader)
+        depth = len(model.blocks)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        batches = _batches(loader)
+        for k in kernels:
+            k.launches = 0
+        metrics, wait_ms, step_wall_ms, per_step, kept = [], [], [], [], {}
+        for step in range(TRAIN_STEPS):
+            if step == TRAIN_WARMUP_STEPS:
+                start.record()
+            counts = [k.launches for k in kernels]
+            tw = time.perf_counter()
+            x, y = next(batches)
+            wait_ms.append((time.perf_counter() - tw) * 1e3)
+            if step - per_epoch in RECIPE_RESUME_STEPS:
+                kept[step - per_epoch] = (x.clone(), y.clone())
+            metrics.append(task.train_step({'input': x, 'target': y},
+                                           lr=sched.step(step)[0], step=step + 1))
+            step_wall_ms.append((time.perf_counter() - tw) * 1e3)
+            per_step.append([k.launches - c for k, c in zip(kernels, counts)])
+            del x, y
+        end.record()
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kernels}
+        step_ms = start.elapsed_time(end) / (TRAIN_STEPS - TRAIN_WARMUP_STEPS)
+        losses = [float(m['loss']) for m in metrics]
+        graphs = loader.augment.graphs
+        augment_graphs = {'route': loader.augment.route, 'captures': graphs.captures,
+                          'replays': graphs.replays, 'pool_bytes': graphs.pool_bytes(),
+                          'static_input_bytes': graphs.static_bytes()}
+        batches.close()
+        train_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        del task, model, opt
+        torch.cuda.empty_cache()
+
+        # epoch 1's steps 5-8 as `--resume auto` regenerates them: a fresh
+        # loader, set_epoch(1), every batch from the first augmented and the
+        # consumed ones dropped (train_one_epoch's skip)
+        fresh = _input_loader(root, data_config, 'cuda', auto_augment=RECIPE_AA, re_mode='pixel')
+        fresh.set_epoch(1)
+        resumed = {}
+        it = iter(fresh)
+        for step, (x, y) in enumerate(it):
+            if step in RECIPE_RESUME_STEPS:
+                resumed[step] = (x, y)
+            if step == max(RECIPE_RESUME_STEPS):
+                break
+        it.close()
+        resume_equal = {str(s): _bit_equal(kept[s][0], resumed[s][0])
+                        and _bit_equal(kept[s][1], resumed[s][1]) for s in RECIPE_RESUME_STEPS}
+        del kept, resumed, fresh
+
+        # the input path alone, no training: 2 epochs of a fresh loader
+        loader_only = _batches(_input_loader(root, data_config, 'cuda', auto_augment=RECIPE_AA,
+                                             re_mode='pixel'))
+        tl = time.perf_counter()
+        for _ in range(2 * per_epoch):
+            next(loader_only)
+        torch.cuda.synchronize()
+        loader_img_per_s = 2 * per_epoch * TRAIN_BATCH / (time.perf_counter() - tl)
+        loader_only.close()
+        host_ms = {'randaugment': _host_ms_per_image(root, data_config, auto_augment=RECIPE_AA),
+                   'colour_jitter': _host_ms_per_image(root, data_config)}
+
+        replays = _augment_replays_vs_eager(data_config)
+        stats = _erased_pixel_stats(data_config)
+
+        # the AugMix arm: host-augmented split batches, JSD loss
+        t_augmix = time.perf_counter()
+        augmix_ds = AugMixDataset(create_dataset('', root, split='train'), num_splits=AUGMIX_SPLITS)
+        augmix_loader = create_loader(
+            augmix_ds, data_config['input_size'], AUGMIX_BATCH, is_training=True,
+            auto_augment=AUGMIX_AA, num_aug_splits=AUGMIX_SPLITS,
+            interpolation=data_config['interpolation'], mean=data_config['mean'],
+            std=data_config['std'], num_workers=INPUT_WORKERS, seed=0)
+        it = iter(augmix_loader)
+        augmix_batches = [dict(zip(('input', 'target'), next(it))) for _ in range(AUGMIX_STEPS)]
+        it.close()
+        augmix_load_s = time.perf_counter() - t_augmix
+        shapes_ok = all(b['input'].shape == (AUGMIX_BATCH * AUGMIX_SPLITS, 224, 224, 3)
+                        and (b['target'][:AUGMIX_BATCH] == b['target'][AUGMIX_BATCH:2 * AUGMIX_BATCH]).all()
+                        for b in augmix_batches)
+        torch.cuda.reset_peak_memory_stats()
+        augmix = _jsd_graph_vs_eager(augmix_batches, data_config)
+        augmix.update(load_s=augmix_load_s, split_major_shapes=bool(shapes_ok),
+                      aa=AUGMIX_AA, splits=AUGMIX_SPLITS, batch=AUGMIX_BATCH)
+        del augmix_batches
+        torch.cuda.empty_cache()
+    row = {'phase': 'recipe_train', 'model': 'vit_base_patch16_224', 'dtype': 'bfloat16',
+           'batch': TRAIN_BATCH, 'steps': TRAIN_STEPS, 'images': n_images,
+           'batches_per_epoch': per_epoch, 'workers': INPUT_WORKERS,
+           'recipe': {'auto_augment': RECIPE_AA, 're_prob': 0.25, 're_mode': 'pixel',
+                      'mixup': 0.8, 'cutmix': 1.0, 'smoothing': 0.1},
+           'losses': losses, 'grad_norms': [float(m['grad_norm']) for m in metrics],
+           'step_ms': step_ms, 'img_per_s': TRAIN_BATCH / step_ms * 1e3,
+           'input_wait_ms_per_step': wait_ms, 'step_wall_ms_per_step': step_wall_ms,
+           **_in_epoch_rate([(w, s - w) for w, s in zip(wait_ms, step_wall_ms)], per_epoch),
+           'loader_only_img_per_s': loader_img_per_s,
+           'host_ms_per_image_one_thread': host_ms,
+           'host_ms_per_image_total': {k: sum(v.values()) for k, v in host_ms.items()},
+           'train_peak_memory_gb': train_peak_gb,
+           # in 'pixel' mode the augment program is the torch program: the
+           # augment-epilogue kernel does not run on this path
+           'wrapper_launches_per_step': per_step, 'launches': launches,
+           'augment_graphs': augment_graphs, 'augment_replays_vs_eager': replays,
+           'erased_pixels_normalized': stats, 'erased_stat_tol': RECIPE_STAT_TOL,
+           'resumed_steps_equal': resume_equal, 'augmix_jsd': augmix,
+           'phase_s': time.perf_counter() - t_phase}
+    emit(row)
+    check(all(np.isfinite(losses)), f'recipe_train: non-finite loss in {losses}')
+    graphed = [1, 1] + [0] * (TRAIN_STEPS - 2)
+    check([p[0] for p in per_step] == [depth * c for c in graphed]
+          and [p[1] for p in per_step] == graphed,
+          f'recipe_train: flash / fused_adamw wrapper launches per step {per_step}')
+    check([p[2] for p in per_step] == [0] * TRAIN_STEPS,
+          f"recipe_train: augment_epilogue launched in 'pixel' mode: {per_step}")
+    check(augment_graphs['captures'] == 1 and augment_graphs['replays'] >= TRAIN_STEPS - 1,
+          f'recipe_train: augment graphs {augment_graphs}')
+    for mode, r in replays.items():
+        for n, b in r['batches'].items():
+            check(all(b['replay_equals_eager']) and b['same_key_same_output']
+                  and b['new_key_new_output'] == (mode == 'pixel'),
+                  f'recipe_train: augment program {mode} at batch {n}: {b}')
+    check(all(abs(m) <= RECIPE_STAT_TOL for m in stats['mean'])
+          and all(abs(s - 1.0) <= RECIPE_STAT_TOL for s in stats['std']),
+          f'recipe_train: erased pixels after normalization {stats}')
+    check(all(resume_equal.values()), f'recipe_train: resumed batches differ {resume_equal}')
+    check(augmix['split_major_shapes'], 'recipe_train: AugMix batches are not split-major')
+    check(all(np.isfinite(augmix['losses'])), f'recipe_train: AugMix losses {augmix["losses"]}')
+    check(not augmix['buffers_that_differ'] and not augmix['steps_whose_metrics_differ'],
+          f'recipe_train: JSD replays differ from eager steps: {augmix["buffers_that_differ"]}, '
+          f'steps {augmix["steps_whose_metrics_differ"]}')
+    check(augmix['captures'] == 1 and augmix['replays'] == AUGMIX_STEPS - 1,
+          f'recipe_train: JSD graph {augmix["captures"]} captures, {augmix["replays"]} replays')
     return launches
 
 
@@ -1270,9 +1621,10 @@ def phase_drivers():
         row['train_from_update_3'] = {'a': train_rates(starts_a, per_epoch)}
         check(rc_a == 0, f'drivers: run A exited {rc_a}')
         # the wrappers count the warm-up and the capture of each graph: the
-        # train step's and the eval step's with and without the EMA
+        # train step's, the eval step's with and without the EMA, and the
+        # augment program's
         check(launches_a == {'flash_attention': depth * (2 + 2 * 2), 'fused_adamw': 2,
-                             'augment_epilogue': updates},
+                             'augment_epilogue': 2},
               f'drivers: run A wrapper launches {launches_a}')
         _trim_run_dir(os.path.join(out, 'a'))
         rc_b, wall_b, launches_b, starts_b = run(
@@ -1721,19 +2073,25 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_train_graph()
         input_launches = phase_input_train(train_step_ms)
+        recipe_launches = phase_recipe_train()
         driver_launches = phase_drivers()
     except Exception:
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
         return 1
+    # recipe_train's 'pixel' erasing runs the augment program's torch
+    # program: the augment-epilogue kernel is not on that path (0 launches)
     launches = {'flash_attention': {'serve': serve_launches,
                                     'train': train_launches['flash_attention'],
                                     'input_train': input_launches['flash_attention'],
+                                    'recipe_train': recipe_launches['flash_attention'],
                                     'drivers': driver_launches['flash_attention']},
                 'fused_adamw': {'train': train_launches['fused_adamw'],
                                 'input_train': input_launches['fused_adamw'],
+                                'recipe_train': recipe_launches['fused_adamw'],
                                 'drivers': driver_launches['fused_adamw']},
                 'augment_epilogue': {'input_train': input_launches['augment_epilogue'],
+                                     'recipe_train': recipe_launches['augment_epilogue'],
                                      'drivers': driver_launches['augment_epilogue']}}
     previous_rows = {'flash_attention': {r['case']: r for r in flash_checks['previous']},
                      'augment_epilogue': {r['case']: r for r in augment_rows}}

@@ -5,9 +5,13 @@ same seed and epoch as JAX's, and the port's plain augment program (which is
 also the plain version of the augment-epilogue kernel, reached here through
 ``DeviceAugment`` on CPU tensors) matches JAX's XLA program, JAX's Pallas
 kernel in interpret mode and JAX's numpy oracle within 1e-6 (the JAX
-registry's ``parity_tol``); fp16 and bf16 outputs within one ulp. Batches
-are small (B 8 and 7, 32 px). JAX is imported inside the fixture. One
-gpu-marked test holds the CUDA kernel against its plain version on the card.
+registry's ``parity_tol``) for 'const', 'rand' and 'pixel' erasing, 'pixel'
+with JAX's noise canvas fed in; fp16 and bf16 outputs within one ulp. The
+port's own 'pixel' noise is held by distribution (JAX's threefry stream
+cannot be reproduced) and by its key. Batches are small (B 8 and 7, 32 px).
+JAX is imported inside the fixture. The gpu-marked tests hold the CUDA
+kernel against its plain version, and the augment program's graph replays
+against its eager run, on the card.
 """
 import functools
 
@@ -16,7 +20,7 @@ import pytest
 import torch
 
 from timm_tpu_torch.data import (
-    DeviceAugment, DeviceAugmentStage, Mixup, RandomErasing, augment_image_batch,
+    DeviceAugment, Mixup, RandomErasing, augment_image_batch, noise_generator_seed, pixel_noise,
 )
 from timm_tpu_torch.kernels import augment_epilogue, augment_epilogue_reference
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -126,27 +130,52 @@ def _torch(batch):
 # included (the middle row is its own partner)
 CASES = [(8, 0, True, 'const'), (8, 1, True, 'const'), (7, 3, True, 'const'),
          (8, 1, False, 'const'), (7, 0, False, 'const'), (7, 3, False, 'const'),
-         (8, 3, True, 'rand'), (7, 1, False, 'rand')]
+         (8, 3, True, 'rand'), (7, 1, False, 'rand'), (7, 3, True, 'pixel')]
+RE_STD = (0.229, 0.224, 0.225)
+NOISE_SEED, NOISE_EPOCH, NOISE_STEP = 11, 2, 5
 
 
 @pytest.mark.parametrize('b,k,mix,mode', CASES)
 def test_plain_augment_matches_jax(jx, b, k, mix, mode):
-    """The port's plain program, and DeviceAugment on CPU tensors (the
-    kernel wrapper's plain route for 'const'), against JAX's XLA program,
-    JAX's Pallas kernel in interpret mode ('const' only: the kernel's
-    regime) and the numpy oracle: images and soft targets within 1e-6."""
+    """The port's plain program against JAX's XLA program, JAX's Pallas
+    kernel in interpret mode ('const' only: the kernel's regime) and the
+    numpy oracle ('const', 'rand'): images and soft targets within 1e-6.
+    In 'pixel' mode the port's program takes the noise canvas JAX's
+    program drew (one jit gives both; a threefry compile takes seconds
+    here). DeviceAugment on CPU tensors (the kernel wrapper's plain route
+    for 'const') is held to the same references, and in 'pixel' mode to
+    the plain program with its own canvas of the same key."""
     batch = _batch(10 * b + k, b, k, mix, mode)
     kw = dict(STATICS, re_mode=mode)
-    x, y = augment_image_batch(_torch(batch), **kw)
-    dx, dy = DeviceAugment(STATICS['mean'], STATICS['std'], re_mode=mode,
-                           re_mean=STATICS['re_mean'], num_classes=NC, smoothing=0.1)(_torch(batch))
-    refs = {'numpy': jx.da.augment_image_batch_np(batch, **kw)}
-    jbatch = {key: jx.jnp.asarray(v) for key, v in batch.items()}
-    refs['xla'] = jx.jax.jit(functools.partial(jx.da.augment_image_batch, **kw))(jbatch)
+    augment = DeviceAugment(STATICS['mean'], STATICS['std'], re_mode=mode, re_mean=STATICS['re_mean'],
+                            re_std=RE_STD, num_classes=NC, smoothing=0.1, noise_seed=NOISE_SEED)
+    dx, dy = augment(_torch(batch), epoch=NOISE_EPOCH, step=NOISE_STEP)
+    if mode == 'pixel':
+        jax_kw = dict(kw, re_std=RE_STD, noise_seed=NOISE_SEED)
+
+        def program(jb):
+            canvas = jx.da.pixel_noise((b, H, W, C), NOISE_SEED, jb['noise_epoch'],
+                                       jb['noise_step'], STATICS['re_mean'], RE_STD)
+            return jx.da.augment_image_batch(jb, **jax_kw), canvas
+
+        jbatch = dict(batch, noise_epoch=np.uint32(NOISE_EPOCH), noise_step=np.uint32(NOISE_STEP))
+        ref, canvas = jx.jax.jit(program)({key: jx.jnp.asarray(v) for key, v in jbatch.items()})
+        refs = {'xla': ref}
+        x, y = augment_image_batch(_torch(batch), **kw, noise=torch.from_numpy(np.array(canvas)))
+        gen = torch.Generator().manual_seed(noise_generator_seed(NOISE_SEED, NOISE_EPOCH, NOISE_STEP))
+        own = augment_image_batch(_torch(batch), **kw, noise=pixel_noise(
+            (b, H, W, C), gen, STATICS['re_mean'], RE_STD))
+        assert torch.equal(dx, own[0]) and torch.equal(dy, own[1])
+        assert not torch.equal(dx, x)  # the port's noise is its own
+    else:
+        x, y = augment_image_batch(_torch(batch), **kw)
+        refs = {'numpy': jx.da.augment_image_batch_np(batch, **kw)}
+        jbatch = {key: jx.jnp.asarray(v) for key, v in batch.items()}
+        refs['xla'] = jx.jax.jit(functools.partial(jx.da.augment_image_batch, **kw))(jbatch)
     if mode == 'const':
         refs['pallas'] = jx.jax.jit(functools.partial(jx.fused, **kw))(jbatch)
     for name, (rx, ry) in refs.items():
-        for px, py in ((x, y), (dx, dy)):
+        for px, py in ((x, y),) + (((dx, dy),) if mode != 'pixel' else ()):
             np.testing.assert_allclose(px.numpy(), np.asarray(rx), atol=1e-6, rtol=0, err_msg=name)
             np.testing.assert_allclose(py.numpy(), np.asarray(ry), atol=1e-6, rtol=0, err_msg=name)
     assert x.dtype == torch.float32 and tuple(x.shape) == (b, H, W, C)
@@ -186,17 +215,42 @@ def test_identity_values_and_zero_boxes():
     assert torch.equal(out, plain)
 
 
+def test_pixel_noise_distribution_and_key():
+    """The port's 'pixel' canvas on (8, 64, 64, 3): per-channel mean and
+    std within 3 sigma of re_mean and re_std; one (seed, epoch, step) gives
+    the same canvas, and through DeviceAugment the same batch; another step
+    or epoch gives another."""
+    shape = (8, 64, 64, 3)
+    mean, std = np.asarray(STATICS['re_mean']), np.asarray(RE_STD)
+
+    def canvas(epoch, step):
+        gen = torch.Generator().manual_seed(noise_generator_seed(NOISE_SEED, epoch, step))
+        return pixel_noise(shape, gen, STATICS['re_mean'], RE_STD)
+
+    noise = canvas(0, 3)
+    assert noise.dtype == torch.float32 and tuple(noise.shape) == shape
+    n = np.prod(shape[:-1])
+    flat = noise.reshape(-1, 3).double().numpy()
+    assert (np.abs(flat.mean(0) - mean) <= 3 * std / np.sqrt(n)).all(), flat.mean(0)
+    assert (np.abs(flat.std(0) - std) <= 3 * std / np.sqrt(2 * n)).all(), flat.std(0)
+    assert torch.equal(noise, canvas(0, 3))
+    assert not torch.equal(noise, canvas(0, 4)) and not torch.equal(noise, canvas(1, 3))
+    batch = _torch(_batch(6, 8, 2, False, 'const'))
+    augment = DeviceAugment(STATICS['mean'], STATICS['std'], re_mode='pixel', re_std=RE_STD,
+                            noise_seed=NOISE_SEED)
+    first, again = augment(batch, epoch=0, step=3)[0], augment(batch, epoch=0, step=3)[0]
+    assert torch.equal(first, again) and not torch.equal(first, augment(batch, epoch=0, step=4)[0])
+
+
 def test_unported_modes_raise():
+    """An unknown erase mode raises, 'pixel' erasing without its canvas
+    raises, and the kernel wrapper raises off CUDA and CPU tensors."""
     batch = _torch(_batch(5, 8, 1, True, 'rand'))
-    with pytest.raises(NotImplementedError, match='pixel'):
-        DeviceAugment(STATICS['mean'], STATICS['std'], re_mode='pixel')
-    with pytest.raises(NotImplementedError, match='pixel'):
+    with pytest.raises(ValueError, match='erase mode'):
+        DeviceAugment(STATICS['mean'], STATICS['std'], re_mode='noise')
+    with pytest.raises(ValueError, match='canvas'):
         augment_image_batch(batch, mean=STATICS['mean'], std=STATICS['std'], re_mode='pixel')
-    with pytest.raises(NotImplementedError, match='pixel'):
-        DeviceAugmentStage([], STATICS['mean'], STATICS['std'], re_mode='pixel', device='cpu')
     meta = {k: v.to('meta') for k, v in batch.items()}
-    with pytest.raises(NotImplementedError, match='rand'):
-        DeviceAugment(STATICS['mean'], STATICS['std'], re_mode='rand')(meta)
     with pytest.raises(NotImplementedError, match='cuda or cpu'):
         augment_epilogue(meta['image'], meta['lam'], meta['use_cutmix'], meta['bbox'],
                          meta['erase_box'], mean=STATICS['mean'], std=STATICS['std'])
@@ -208,7 +262,8 @@ def test_kernel_on_card_matches_plain():
     1e-6, fp16 / bf16 within one ulp; odd batches, W*C not a multiple of 4
     (H*W*C a multiple of 4 and not), 1 and 4 channels, K 0 and 3, int32 and
     bool cutmix flags; one launch per call; 'rand', C > 4 and a
-    non-contiguous image raise."""
+    non-contiguous image raise; 'rand' erasing runs the torch program, no
+    kernel."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     rng = np.random.default_rng(0)
@@ -241,9 +296,10 @@ def test_kernel_on_card_matches_plain():
         else:
             assert (np.abs(o - r) <= _ulp(r, 10 if dtype == torch.float16 else 7)).all()
     args = (image, lam, cut, bbox, erase)
-    with pytest.raises(NotImplementedError, match='rand'):
-        DeviceAugment((0.5,), (0.5,), re_mode='rand')(
-            {'image': image, 'target': torch.zeros(b, dtype=torch.int64, device='cuda')})
+    before = augment_epilogue.launches
+    DeviceAugment((0.5,), (0.5,), re_mode='rand')(
+        {'image': image, 'target': torch.zeros(b, dtype=torch.int64, device='cuda')})
+    assert augment_epilogue.launches == before
     wide = torch.zeros(1, 4, 4, 5, dtype=torch.uint8, device='cuda')
     with pytest.raises(NotImplementedError, match='channels'):
         augment_epilogue(wide, *args[1:], mean=(0,) * 5, std=(1,) * 5)
@@ -316,3 +372,54 @@ def test_kernel_bit_identical_on_card(width, mode):
                         assert (np.abs(o - r) <= _ulp(r, 7)).all(), where
                     else:
                         assert torch.equal(_bits(out), _bits(ref)), where
+
+
+def _card_augment_batch(rng, b, mode, size=224, k=1):
+    """A uint8 batch at ViT-B/16's size with K erase boxes in 3 of 4 rows,
+    'rand' fills, and mixup / cutmix rows, as numpy arrays."""
+    batch = _batch(int(rng.integers(1 << 30)), b, 0, True, mode)
+    batch['image'] = rng.integers(0, 256, (b, size, size, C), dtype=np.uint8)
+    yl, xl = rng.integers(0, size // 2, b), rng.integers(0, size // 2, b)
+    batch['bbox'] = np.stack([yl, yl + size // 4, xl, xl + size // 4], 1).astype(np.int32)
+    boxes = np.zeros((b, k, 4), np.int32)
+    for i in range(0, b, 4):
+        for j in range(k):
+            for r in (i, i + 1, i + 2):
+                if r < b:
+                    eh, ew = rng.integers(8, size // 2, 2)
+                    boxes[r, j] = (rng.integers(0, size - eh), rng.integers(0, size - ew), eh, ew)
+    batch['erase_box'] = boxes
+    if mode == 'rand':
+        batch['erase_fill'] = rng.standard_normal((b, k, C)).astype(np.float32)
+    return batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('mode', ['const', 'rand', 'pixel'])
+def test_augment_graph_replays_equal_eager_program_on_card(mode):
+    """The augment program through its graphs (per batch size: a warm-up,
+    a capture, a replay) against the program run eagerly on the same
+    inputs, bit for bit, at batch 64 and 37; in 'pixel' mode with each
+    call's own (epoch, step) key, so every replay redraws its noise, and a
+    replay of a key already drawn gives that noise again."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    rng = np.random.default_rng(len(mode))
+    augment = DeviceAugment(STATICS['mean'], STATICS['std'], re_mode=mode, re_mean=STATICS['re_mean'],
+                            re_std=RE_STD, num_classes=NC, smoothing=0.1, noise_seed=NOISE_SEED,
+                            device='cuda')
+    keys = [(0, 0), (0, 1), (1, 2), (0, 1)]
+    for b in (64, 37):
+        first, second = _card_augment_batch(rng, b, mode), _card_augment_batch(rng, b, mode)
+        batches = [first, second, second, second]
+        outs = [augment(batch, epoch=e, step=s) for batch, (e, s) in zip(batches, keys)]
+        for batch, (e, s), (x, y) in zip(batches, keys, outs):
+            if augment.generator is not None:
+                augment.generator.manual_seed(noise_generator_seed(NOISE_SEED, e, s))
+            want_x, want_y = augment._program(
+                {k: torch.from_numpy(np.asarray(v)).cuda() for k, v in batch.items()}, mode)
+            assert torch.equal(_bits(x), _bits(want_x)) and torch.equal(y, want_y), (b, e, s)
+        assert torch.equal(outs[1][0], outs[3][0])
+        assert torch.equal(outs[1][0], outs[2][0]) == (mode != 'pixel')
+    assert augment.graphs.captures == 2 and augment.graphs.replays == 6
+    assert augment.graphs.pool_bytes() > 0

@@ -324,10 +324,12 @@ def test_drivers_raise_for_unported_flags_and_without_a_card():
     import torch
 
     from timm_tpu_torch import inference, train, validate
-    for flag, item in (('--fsdp=2', 'A.5.11'), ('--aa=rand-m9', 'A.5.3'),
+    for flag, item in (('--fsdp=2', 'A.5.11'), ('--split-bn', 'A.5.6'),
                        ('--lr-cycle-limit=2', 'A.5.5'), ('--distill=teacher=x', 'A.5.10')):
         with pytest.raises(NotImplementedError, match=item):
             train.main(COMMON + [flag])
+    with pytest.raises(ValueError, match='aug-splits'):
+        train.main(COMMON + ['--device-augment', '--aug-splits', '3'])
     with pytest.raises(NotImplementedError, match='A.5.4'):
         train.main(COMMON + ['--fault-inject', 'nan_grads@2'])
     with pytest.raises(NotImplementedError, match='A.5.10'):
@@ -338,6 +340,29 @@ def test_drivers_raise_for_unported_flags_and_without_a_card():
         with pytest.raises(RuntimeError, match='CUDA'):
             train.main([a for a in COMMON if a not in ('--device', 'cpu')])
 
+
+
+def test_train_runs_randaugment_with_augmix_splits_and_jsd(tmp_path):
+    """One epoch from a folder of 8 PNGs with ``--aa rand-m2-n1
+    --aug-splits 2 --jsd-loss``: 2 updates on 2 x 4 images (the clean
+    split and a RandAugment split), a finite JSD loss, a checkpoint."""
+    from PIL import Image
+
+    from timm_tpu_torch import train
+    rng = np.random.default_rng(0)
+    for c in range(2):
+        os.makedirs(tmp_path / 'data' / f'class{c}')
+        for i in range(4):
+            Image.fromarray(rng.integers(0, 256, (40, 44, 3), dtype=np.uint8)).save(
+                tmp_path / 'data' / f'class{c}' / f'{i}.png')
+    argv = ['--device', 'cpu', '--data-dir', str(tmp_path / 'data'), '--model', 'test_vit',
+            '--img-size', '32', '--num-classes', '2', '-b', '4', '--epochs', '1', '--workers', '1',
+            '--opt', 'adamw', '--lr', '1e-3', '--aa', 'rand-m2-n1', '--aug-splits', '2',
+            '--jsd-loss', '--output', str(tmp_path), '--experiment', 'jsd']
+    assert train.main(argv) == 0
+    with np.load(tmp_path / 'jsd' / 'last.npz') as d:
+        assert int(d['optimizer.count']) == 2
+    assert np.isfinite(float(_summary(tmp_path / 'jsd' / 'summary.csv')['train_loss']))
 
 
 def test_train_grad_accum_flushes_the_partial_group(tmp_path):

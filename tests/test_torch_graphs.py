@@ -21,7 +21,7 @@ from timm_tpu_torch.task import ClassificationTask
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
-def _task(device='cpu', opt='adamw', accum=1, seed=0, drop_path_rate=0.1):
+def _task(device='cpu', opt='adamw', accum=1, seed=0, drop_path_rate=0.1, loss=None):
     """test_vit at 32 px (2 blocks, 5 tokens), clip 1.0, EMA with warmup,
     the guard on."""
     model = timm_tpu_torch.create_model('test_vit', img_size=32, num_classes=10, seed=seed,
@@ -29,7 +29,7 @@ def _task(device='cpu', opt='adamw', accum=1, seed=0, drop_path_rate=0.1):
     kw = dict(weight_decay=0.05) if opt == 'adamw' else dict(weight_decay=0.05, momentum=0.9)
     optimizer = create_optimizer_v2(model, opt=opt, lr=1e-3, **kw)
     task = ClassificationTask(model, optimizer=optimizer, grad_accum_steps=accum,
-                              train_loss_fn=LabelSmoothingCrossEntropy(0.1), clip_grad=1.0,
+                              train_loss_fn=loss or LabelSmoothingCrossEntropy(0.1), clip_grad=1.0,
                               nonfinite_guard=True, seed=seed)
     task.setup_ema(decay=0.99, warmup=True)
     return task
@@ -80,6 +80,32 @@ def test_train_body_reads_nothing_back_to_the_host(accum, monkeypatch):
     monkeypatch.undo()
     assert set(metrics) == {'loss', 'grad_norm', 'nonfinite', 'nonfinite_count', 'nonfinite_total'}
     assert int(task.optimizer.count) == 1 and np.isfinite(float(metrics['loss']))
+
+
+@pytest.mark.parametrize('mode', ['const', 'rand', 'pixel'])
+def test_augment_program_reads_nothing_back_to_the_host(mode, monkeypatch):
+    """The augment program of each erase mode (mixup, 2 erase boxes a row)
+    under the same dispatch mode: no host read in the program, the
+    epilogue's plain version or the staging."""
+    from timm_tpu_torch.data import DeviceAugment
+    rng = np.random.default_rng(1)
+    b = 6
+    batch = {'image': rng.integers(0, 256, (b, 16, 16, 3), dtype=np.uint8),
+             'target': rng.integers(0, 10, b), 'lam': rng.uniform(0.2, 1, b).astype(np.float32),
+             'use_cutmix': rng.integers(0, 2, b).astype(bool),
+             'bbox': np.tile(np.array([[2, 9, 3, 12]], np.int32), (b, 1)),
+             'erase_box': np.tile(np.array([[1, 2, 5, 6], [8, 8, 4, 3]], np.int32), (b, 1, 1))}
+    if mode == 'rand':
+        batch['erase_fill'] = rng.standard_normal((b, 2, 3)).astype(np.float32)
+    augment = DeviceAugment((0.5, 0.4, 0.3), (0.2, 0.3, 0.4), re_mode=mode, re_mean=(0.5, 0.4, 0.3),
+                            re_std=(0.2, 0.3, 0.4), num_classes=10, smoothing=0.1)
+    for method in ('numpy', 'tolist', 'cpu', 'item'):
+        monkeypatch.setattr(torch.Tensor, method, _raiser(method))
+    with _NoHostReads():
+        x, y = augment(batch, epoch=1, step=2)
+    monkeypatch.undo()
+    assert tuple(x.shape) == (b, 16, 16, 3) and tuple(y.shape) == (b, 10)
+    assert bool(torch.isfinite(x).all())
 
 
 def _raiser(method):
@@ -229,4 +255,36 @@ def test_resume_into_a_fresh_graph_on_card():
     for a, b in zip(m_whole[3:], m_second):
         assert all(torch.equal(a[k], b[k]) for k in a)
     for a, b in zip(_state(whole), _state(second)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_jsd_train_replays_equal_eager_steps_on_card():
+    """The JSD loss inside the captured step: 6 steps of 3 splits x 4
+    images through the graphs against 6 eager steps of the body, every
+    metric and buffer bit for bit."""
+    _card_or_skip()
+    from timm_tpu_torch.loss import JsdCrossEntropy
+    batches = []
+    for i in range(6):
+        b = _batch(30 + i, n=12, device='cuda')
+        b['target'] = b['target'][:4].repeat(3)
+        batches.append(b)
+    lrs = [1e-3 * (i + 1) / 6 for i in range(6)]
+    runs = []
+    for graphed in (False, True):
+        task = _task('cuda', loss=JsdCrossEntropy(num_splits=3, smoothing=0.1))
+        if graphed:
+            metrics = [task.train_step(b, lr=lr, step=s)
+                       for s, (b, lr) in enumerate(zip(batches, lrs), start=1)]
+            assert task.train_graphs.captures == 1 and task.train_graphs.replays == 5
+        else:
+            metrics = _eager_steps(task, batches, lrs)
+        torch.cuda.synchronize()
+        runs.append((metrics, _state(task)))
+    (m_eager, s_eager), (m_graph, s_graph) = runs
+    assert all(np.isfinite(float(m['loss'])) for m in m_graph)
+    for a, b in zip(m_eager, m_graph):
+        assert a.keys() == b.keys() and all(_bit_equal(a[k], b[k]) for k in a)
+    for a, b in zip(s_eager, s_graph):
         assert torch.equal(a, b)

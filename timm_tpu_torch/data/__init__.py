@@ -1,11 +1,13 @@
 """The input path of training (counterpart of timm_tpu/data): dataset,
 threaded loader, CUDA-stream device prefetcher, host sampling of mixup,
-cutmix and erasing parameters, and the device augment stage.
+cutmix and erasing parameters, and the device augment stage; RandAugment,
+AutoAugment and AugMix (``auto_augment``) and AugMix's split dataset
+(``dataset.AugMixDataset``).
 
 Importing this package does not import PIL: the modules that need it
-(``dataset``, ``dataset_factory``, ``transforms``, ``transforms_factory``)
-are imported by name, and ``create_loader`` imports ``create_transform``
-when it is called.
+(``auto_augment``, ``dataset``, ``dataset_factory``, ``transforms``,
+``transforms_factory``) are imported by name, and ``create_loader``
+imports ``create_transform`` when it is called.
 """
 from .config import resolve_data_config, resolve_model_data_config
 from .constants import (
@@ -14,7 +16,7 @@ from .constants import (
 )
 from .device_augment import (
     DeviceAugment, DeviceAugmentStage, augment_image_batch, augment_images, erase_images,
-    mixup_images, mixup_targets,
+    mixup_images, mixup_targets, noise_generator_seed, pixel_noise,
 )
 from .loader import DevicePrefetcher, ThreadedLoader, create_loader
 from .mixup import FastCollateMixup, Mixup, mixup_target

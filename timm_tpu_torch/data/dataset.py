@@ -1,6 +1,6 @@
-"""Map-style image dataset (counterpart of ``ImageDataset`` in
-timm_tpu/data/dataset.py). The iterable and AugMix datasets wait with the
-streaming readers and AugMix (ROADMAP A.5)."""
+"""Map-style image dataset and AugMix's split dataset (counterparts of
+``ImageDataset`` and ``AugMixDataset`` in timm_tpu/data/dataset.py). The
+iterable dataset waits with the streaming readers (ROADMAP A.5.4)."""
 from __future__ import annotations
 
 import logging
@@ -12,7 +12,7 @@ from .readers import create_reader
 
 _logger = logging.getLogger(__name__)
 
-__all__ = ['ImageDataset']
+__all__ = ['AugMixDataset', 'ImageDataset']
 
 
 class ImageDataset:
@@ -66,3 +66,44 @@ class ImageDataset:
 
     def filenames(self, basename=False, absolute=False):
         return self.reader.filenames(basename, absolute)
+
+
+class AugMixDataset:
+    """(clean, aug1, ..., aug(N-1)) tuples of one sample for AugMix / JSD
+    training: every split shares the dataset's primary transform; the
+    secondary (the AugMix op) makes each augmented split, and the final
+    transform ends every split. Set ``transform`` to the three pipelines of
+    ``create_transform(..., separate=True)``."""
+
+    def __init__(self, dataset: ImageDataset, num_splits: int = 2):
+        self.dataset = dataset
+        self.num_splits = num_splits
+        self.augmentation = None
+        self.normalize = None
+
+    def _set_transforms(self, x):
+        assert isinstance(x, (list, tuple)) and len(x) == 3
+        self.dataset.transform = x[0]
+        self.augmentation = x[1]
+        self.normalize = x[2]
+
+    @property
+    def transform(self):
+        return self.dataset.transform
+
+    @transform.setter
+    def transform(self, x):
+        self._set_transforms(x)
+
+    def _normalize(self, x):
+        return x if self.normalize is None else self.normalize(x)
+
+    def __getitem__(self, i):
+        x, y = self.dataset[i]  # every split shares the primary transform's image
+        x_list = [self._normalize(x)]
+        for _ in range(self.num_splits - 1):
+            x_list.append(self._normalize(self.augmentation(x)))
+        return tuple(x_list), y
+
+    def __len__(self):
+        return len(self.dataset)

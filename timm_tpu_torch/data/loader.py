@@ -6,11 +6,12 @@
     collator thread stacks numpy batches; the index order, the drop_last
     rule and the poison-sample budget are the JAX package's. Unlike the JAX
     loader, which collates training batches in arrival order and lets its
-    random transforms draw from the global ``random`` in whichever thread
-    runs first, each sample's transforms draw from a stream keyed by seed,
-    process, epoch and position (data/sample_rng.py) and batches collate in
-    epoch order: an epoch is the same whatever the worker count and thread
-    timing, so a resumed run sees the images an uninterrupted one saw.
+    random transforms draw from the global ``random`` and ``np.random`` in
+    whichever thread runs first, each sample's transforms draw from streams
+    keyed by seed, process, epoch and position (data/sample_rng.py) and
+    batches collate in epoch order: an epoch is the same whatever the worker
+    count and thread timing, so a resumed run sees the images an
+    uninterrupted one saw. AugMix's tuple samples collate split-major.
     Worker threads never touch CUDA.
   * ``DevicePrefetcher``: pins each host batch and copies it to the card on
     a side stream, keeping up to ``size`` batches in flight, so the copy of
@@ -25,7 +26,6 @@ from __future__ import annotations
 import collections
 import math
 import queue
-import random
 import threading
 from typing import Optional
 
@@ -38,7 +38,7 @@ from .constants import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
 from .device_augment import DeviceAugmentStage
 from .mixup import FastCollateMixup
 from .random_erasing import RandomErasing
-from .sample_rng import set_sample_rng
+from .sample_rng import set_sample_key
 
 __all__ = ['create_loader', 'DevicePrefetcher', 'ThreadedLoader']
 
@@ -116,6 +116,17 @@ class DevicePrefetcher:
             close = getattr(it, 'close', None)
             if close is not None:
                 close()
+
+
+def _collate_arrays(imgs, targets):
+    """Stack a list of samples; AugMix tuple samples (clean, aug1, ...) are
+    concatenated split-major along the batch, their targets tiled per
+    split."""
+    if isinstance(imgs[0], (tuple, list)):
+        n_splits = len(imgs[0])
+        x = np.concatenate([np.stack([im[j] for im in imgs]) for j in range(n_splits)])
+        return x, np.tile(np.asarray(targets), n_splits)
+    return np.stack(imgs), np.asarray(targets)
 
 
 class ThreadedLoader:
@@ -229,8 +240,7 @@ class ThreadedLoader:
         skip_budget = SkipBudget()
 
         def load(pos, idx):
-            set_sample_rng(random.Random(
-                f'{self.seed}/{self.process_index}/{self.epoch}/{pos}'))
+            set_sample_key(f'{self.seed}/{self.process_index}/{self.epoch}/{pos}')
             return self.dataset[idx]
 
         def worker(worker_jobs):
@@ -269,7 +279,7 @@ class ThreadedLoader:
             def emit(force_last: bool):
                 nonlocal batch_imgs, batch_targets
                 if len(batch_imgs) == self.batch_size or (force_last and batch_imgs and not self.drop_last):
-                    x, t = np.stack(batch_imgs), np.asarray(batch_targets)
+                    x, t = _collate_arrays(batch_imgs, batch_targets)
                     if self.random_erasing is not None:
                         x = self.random_erasing(x)
                     ok = _put(batch_q, (x, t))
@@ -385,11 +395,15 @@ def create_loader(
     ``device_augment=True`` moves RandomErasing, Mixup/CutMix (pass the
     Mixup sampler via ``mixup=``) and normalize off the host: batches
     collate as raw uint8, the host samples only the augmentation
-    parameters, and the device augment stage (the augment-epilogue kernel on
-    the card) does the float math on ``device``. The loader then yields
-    (input, target) tensors, soft targets when mixup is active."""
-    if num_aug_splits:
-        raise NotImplementedError('num_aug_splits (AugMix splits) is not ported yet (ROADMAP A.5)')
+    parameters, and the device augment stage (one CUDA graph per batch
+    shape on the card: the augment-epilogue kernel for 'const' erasing,
+    the torch program for 'rand' and 'pixel') does the float math on
+    ``device``. The loader then yields
+    (input, target) tensors, soft targets when mixup is active.
+
+    ``num_aug_splits=N`` (with an ``AugMixDataset`` of N splits) builds the
+    split pipelines and collates each batch of B samples as N * B images,
+    split-major, with the targets tiled."""
     if not hasattr(dataset, '__getitem__'):
         raise NotImplementedError(
             'iterable datasets need StreamingLoader, which is not ported yet (ROADMAP A.5)')
@@ -407,7 +421,7 @@ def create_loader(
     if device_prefetch or device_augment:
         device = resolve_device(device)
 
-    re_num_splits = 2 if re_split else 0
+    re_num_splits = (num_aug_splits or 2) if re_split else 0
 
     # create_loader owns the dataset transform (reference loader.py:205 does
     # the same — the pipeline is derived from loader args); imported here so
@@ -434,6 +448,7 @@ def create_loader(
         crop_mode=crop_mode,
         crop_border_pixels=crop_border_pixels,
         re_prob=0.0,  # RE applied post-collate by the loader
+        separate=num_aug_splits > 0,
         output_dtype=np.uint8 if device_augment else None,
     )
 
@@ -466,5 +481,6 @@ def create_loader(
             std=np.asarray(std, np.float32), seed=seed) if re_prob > 0 else None
         loader = DeviceAugmentStage(
             loader, mean=mean, std=std, mixup=mixup, random_erasing=re_sampler,
-            re_mode=re_mode, out_dtype=torch.float16 if fp16 else torch.float32, device=device)
+            re_mode=re_mode, noise_seed=seed,
+            out_dtype=torch.float16 if fp16 else torch.float32, device=device)
     return loader

@@ -109,8 +109,8 @@ class RandomErasing:
         """Device-augment split: draw erase rectangles (and 'rand'-mode fill
         colors) without touching pixels, consuming the RNG stream in the same
         order as __call__ so a seeded run is bit-identical either way — except
-        'pixel' mode, whose per-pixel noise the JAX package draws on its
-        device (the port's device stage does not run 'pixel' mode).
+        'pixel' mode, whose per-pixel noise the device program draws
+        (data/device_augment.py ``pixel_noise``).
 
         Returns {'erase_box': (B, K, 4) i32 as (top, left, eh, ew)} plus, for
         mode='rand', {'erase_fill': (B, K, C) f32} ([0,1]-space fill colors).

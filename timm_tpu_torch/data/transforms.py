@@ -3,8 +3,9 @@ timm_tpu/data/transforms.py).
 
 Transforms compose PIL→PIL; the terminal ToNumpy yields float32 HWC in [0,1],
 or raw uint8 for the device augment path. Normalization happens on the
-device, so the host pipeline stays uint8/float32-cheap. This module and
-data/dataset.py are the only ones of the port that import PIL.
+device, so the host pipeline stays uint8/float32-cheap. This module,
+data/auto_augment.py and data/dataset.py are the only ones of the port that
+import PIL.
 
 Random transforms draw from ``sample_rng()`` (data/sample_rng.py): the
 loader's per-sample stream, else Python's global ``random``.

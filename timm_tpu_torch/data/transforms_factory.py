@@ -1,28 +1,23 @@
 """Transform pipeline factory (counterpart of
 timm_tpu/data/transforms_factory.py): the noaug, train and eval pipelines,
-``output_dtype=np.uint8`` for the device augment path. ``auto_augment``
-(RandAugment, AugMix, AutoAugment) and the split pipelines of AugMix wait
-(ROADMAP A.5)."""
+``auto_augment`` (RandAugment, AugMix, AutoAugment in place of colour
+jitter), ``separate=True`` for AugMix's split datasets (the primary,
+secondary and final pipelines apart), ``output_dtype=np.uint8`` for the
+device augment path."""
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
+from .auto_augment import augment_and_mix_transform, auto_augment_transform, rand_augment_transform
 from .constants import DEFAULT_CROP_PCT, IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
 from .transforms import (
     CenterCrop, CenterCropOrPad, ColorJitter, Compose, RandomApply,
     RandomGaussianBlur, RandomGrayscale, RandomHorizontalFlip,
     RandomResizedCropAndInterpolation, RandomVerticalFlip, Resize, ResizeKeepRatio,
-    ToNumpy, TrimBorder,
+    ToNumpy, TrimBorder, str_to_pil_interp,
 )
 
 __all__ = ['create_transform', 'transforms_imagenet_train', 'transforms_imagenet_eval', 'transforms_noaug_train']
-
-
-def _check_no_auto_augment(auto_augment):
-    if auto_augment:
-        raise NotImplementedError(
-            f'auto_augment={auto_augment!r}: RandAugment, AugMix and AutoAugment are not '
-            'ported yet (ROADMAP A.5)')
 
 
 def transforms_noaug_train(
@@ -58,6 +53,7 @@ def transforms_imagenet_train(
         re_mode: str = 'const',
         re_count: int = 1,
         re_num_splits: int = 0,
+        separate: bool = False,
         output_dtype=None,
         **kwargs,
 ):
@@ -72,9 +68,23 @@ def transforms_imagenet_train(
     if vflip > 0.0:
         primary_tfl.append(RandomVerticalFlip(p=vflip))
 
-    _check_no_auto_augment(auto_augment)
     secondary_tfl = []
-    if color_jitter is not None and color_jitter != 0:
+    if auto_augment:
+        assert isinstance(auto_augment, str)
+        img_size_min = img_size if isinstance(img_size, int) else min(img_size)
+        aa_params = dict(
+            translate_const=int(img_size_min * 0.45),
+            img_mean=tuple(int(round(255 * x)) for x in mean),
+        )
+        if interpolation and interpolation != 'random':
+            aa_params['interpolation'] = str_to_pil_interp(interpolation)
+        if auto_augment.startswith('rand'):
+            secondary_tfl.append(rand_augment_transform(auto_augment, aa_params))
+        elif auto_augment.startswith('augmix'):
+            secondary_tfl.append(augment_and_mix_transform(auto_augment, aa_params))
+        else:
+            secondary_tfl.append(auto_augment_transform(auto_augment, aa_params))
+    elif color_jitter is not None and color_jitter != 0:
         if isinstance(color_jitter, (list, tuple)):
             assert len(color_jitter) in (3, 4)
         else:
@@ -90,6 +100,8 @@ def transforms_imagenet_train(
     final_tfl = [ToNumpy(output_dtype) if output_dtype is not None else ToNumpy()]
     # NOTE: RandomErasing runs post-collate on the batch (see loader.py) to
     # mirror the reference's device-side erasing placement.
+    if separate:
+        return (Compose(primary_tfl), Compose(secondary_tfl), Compose(final_tfl))
     return Compose(primary_tfl + secondary_tfl + final_tfl)
 
 
@@ -152,11 +164,11 @@ def create_transform(
         crop_pct=None,
         crop_mode=None,
         crop_border_pixels=None,
+        separate: bool = False,
         output_dtype=None,
         **kwargs,
 ):
     """(reference transforms_factory.py:379)."""
-    _check_no_auto_augment(auto_augment)
     if isinstance(input_size, (tuple, list)):
         img_size = input_size[-2:]
         if img_size[0] == img_size[1]:
@@ -186,6 +198,7 @@ def create_transform(
             re_mode=re_mode,
             re_count=re_count,
             re_num_splits=re_num_splits,
+            separate=separate,
             output_dtype=output_dtype,
         )
     return transforms_imagenet_eval(

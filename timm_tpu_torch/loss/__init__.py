@@ -1,1 +1,2 @@
 from .cross_entropy import LabelSmoothingCrossEntropy, SoftTargetCrossEntropy, cross_entropy
+from .jsd import JsdCrossEntropy

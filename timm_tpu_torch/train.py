@@ -9,7 +9,12 @@ One process, one device. Each update is ``ClassificationTask.train_step``:
 the flash-attention kernel in every block's forward, and the fused AdamW +
 EMA kernel for the update (``--opt adamw``; ``--fused-update`` is accepted
 and changes nothing, since the port's AdamW step is always that kernel).
-With ``--device-augment`` the loader ends in the augment-epilogue kernel.
+With ``--device-augment`` the loader ends in the augment program, one CUDA
+graph per batch shape: the augment-epilogue kernel for ``--remode const``,
+the torch program for 'rand' and 'pixel' (the default), as in the JAX
+package. ``--aa`` takes RandAugment, AutoAugment and AugMix strings;
+``--aug-splits N`` with ``--jsd-loss`` trains AugMix with the JSD loss on
+host-augmented split batches.
 Checkpoints are the JAX package's single-file .npz with its SHA-256
 manifest (``utils/checkpoint_saver.py``); ``--resume auto`` continues from
 the newest valid one, mid-epoch after a SIGTERM, bit for bit on the CPU.
@@ -87,10 +92,11 @@ def make_parser():
                        help='keep N batches in flight on the device (copies on a side CUDA '
                             'stream, overlapped with the step); 0 disables')
     group.add_argument('--device-augment', action='store_true', default=False,
-                       help='run normalize + mixup/cutmix + random-erase on the device (the '
-                            'augment-epilogue kernel on the card); the host collates raw uint8 '
-                            'and only samples augment parameters. Requires --grad-accum-steps 1 '
-                            'and a real dataset')
+                       help='run normalize + mixup/cutmix + random-erase on the device (one '
+                            'CUDA graph per batch shape: the augment-epilogue kernel for --remode '
+                            "const, the torch program for 'rand' and 'pixel'); the host collates "
+                            'raw uint8 and only samples augment parameters. Requires '
+                            '--grad-accum-steps 1, a real dataset and no --aug-splits')
     group.add_argument('--naflex-bucket-mode', type=str, default='budget',
                        choices=('budget', 'native'), help='not ported (ROADMAP A.5.8)')
     group.add_argument('--fsdp', type=int, default=0, metavar='N',
@@ -250,7 +256,7 @@ _UNPORTED = (
     ('lr_cycle_decay', 'A.5.5'), ('lr_cycle_limit', 'A.5.5'), ('lr_k_decay', 'A.5.5'),
     ('warmup_prefix', 'A.5.5'), ('cooldown_epochs', 'A.5.5'),
     ('bce_loss', 'A.5.5'), ('bce_sum', 'A.5.5'), ('bce_target_thresh', 'A.5.5'),
-    ('aa', 'A.5.3'), ('jsd_loss', 'A.5.3'), ('aug_splits', 'A.5.3'), ('split_bn', 'A.5.6'),
+    ('split_bn', 'A.5.6: ViT has no BatchNorm; split BN comes with the CNNs'),
     ('epoch_repeats', 'A.5.1: the JAX script parses it and never reads it'),
     ('worker_seeding', 'A.5.1: the JAX script parses it and never reads it'),
     ('amp_dtype', 'A.5.7: --amp is bf16; the JAX script parses --amp-dtype and never reads it'),
@@ -331,7 +337,7 @@ def main(argv=None) -> int:
     from ._device import resolve_device
     from .data import Mixup, resolve_data_config
     from .data.loader import DevicePrefetcher
-    from .loss import LabelSmoothingCrossEntropy, SoftTargetCrossEntropy
+    from .loss import JsdCrossEntropy, LabelSmoothingCrossEntropy, SoftTargetCrossEntropy
     from .models import convert_jax_checkpoint, create_model, is_jax_checkpoint, load_checkpoint
     from .optim import create_optimizer_v2
     from .resilience import (
@@ -372,6 +378,13 @@ def main(argv=None) -> int:
     if args.num_classes is None:
         args.num_classes = model.num_classes
 
+    # AugMix splits: each sample comes as (clean, aug1, ...), split-major
+    num_aug_splits = 0
+    if args.aug_splits > 0:
+        if args.aug_splits < 2:
+            raise ValueError('--aug-splits: a split of 1 makes no sense')
+        num_aug_splits = args.aug_splits
+
     data_config = resolve_data_config(vars(args), model=model, verbose=True)
     img_size = data_config['input_size'][-1]
 
@@ -394,6 +407,9 @@ def main(argv=None) -> int:
         if args.grad_accum_steps != 1:
             raise ValueError('--device-augment yields device-resident batches; use '
                              '--grad-accum-steps 1')
+        if num_aug_splits > 1:
+            raise ValueError('--device-augment does not compose with --aug-splits '
+                             '(split-batch augmentation collates on host)')
         if args.synthetic_data or not args.data_dir:
             raise ValueError('--device-augment needs a real dataset pipeline; '
                              'pass --data-dir (synthetic batches are already floats)')
@@ -414,7 +430,11 @@ def main(argv=None) -> int:
     )
     eval_norm = None if norm_mean is not None else Normalize(data_config['mean'], data_config['std'], device)
 
-    if args.mixup > 0 or args.cutmix > 0:
+    if args.jsd_loss:
+        if num_aug_splits < 2:
+            raise ValueError('--jsd-loss requires --aug-splits > 1')
+        train_loss = JsdCrossEntropy(num_splits=num_aug_splits, smoothing=args.smoothing)
+    elif args.mixup > 0 or args.cutmix > 0:
         train_loss = SoftTargetCrossEntropy()
     elif args.smoothing:
         train_loss = LabelSmoothingCrossEntropy(smoothing=args.smoothing)
@@ -443,6 +463,9 @@ def main(argv=None) -> int:
         dataset_eval = create_dataset(
             args.dataset, root=args.data_dir, split=args.val_split, is_training=False,
             class_map=args.class_map, num_classes=args.num_classes)
+        if num_aug_splits > 1:
+            from .data.dataset import AugMixDataset
+            dataset_train = AugMixDataset(dataset_train, num_splits=num_aug_splits)
         train_mixup = None
         if args.device_augment and (args.mixup > 0 or args.cutmix > 0):
             # the parameter sampler only: the pixel and target math runs in
@@ -466,6 +489,7 @@ def main(argv=None) -> int:
             re_prob=args.reprob,
             re_mode=args.remode,
             re_count=args.recount,
+            num_aug_splits=num_aug_splits,
             interpolation=args.train_interpolation,
             mean=data_config['mean'],
             std=data_config['std'],
