@@ -31,7 +31,18 @@ epoch's batches, and runs an AugMix arm with the JSD loss. Last, phase
 by an injected SIGTERM after update 12 (B) and resumed with ``--resume
 auto`` (C), C's checkpoint held to A's; then ``validate`` and
 ``inference`` on A's EMA weights, held to A's last evaluation, and one
-``python -m timm_tpu_torch.validate`` subprocess.
+``python -m timm_tpu_torch.validate`` subprocess. ConvNeXt-B
+(``convnext_base``, full width and depth, layer scale and GRN lifted from
+their near-identity init) runs after ``train_graph``: its depthwise 7x7
+convolution alone, forward and backward against their bounds (phase
+``convnext_depthwise``); bf16 on the card against fp32 on the CPU
+(``convnext_model``); served through the engine with its bucket graphs
+(``convnext_serve``); trained through ClassificationTask with drop path
+0.5, one ``fused_adamw`` launch an update and the step a CUDA graph, its
+gradients against the CPU and its replays against the eager body
+(``convnext_train``); and, last, trained by the train driver from PNGs
+through the augment-epilogue kernel under the profiler in a subprocess and
+validated (``convnext_drivers``).
 
 Phase ``kernels`` reads the kernel registry (``timm_tpu_torch/kernels/
 registry.py``): every registered kernel is held to its plain version at
@@ -61,6 +72,7 @@ non-zero at once. It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import os
 import re
@@ -760,11 +772,14 @@ def phase_breakdown(engine):
           f'breakdown: a replayed bucket-64 forward ran {replay_flash} flash kernels')
 
 
-def _train_task(seed: int, device, dtype, drop_path_rate: float, opt: str = 'adamw', **task_kw):
+def _train_task(seed: int, device, dtype, drop_path_rate: float, opt: str = 'adamw',
+                model_name: str = 'vit_base_patch16_224', **task_kw):
     import timm_tpu_torch
     from timm_tpu_torch.loss import LabelSmoothingCrossEntropy
-    model = timm_tpu_torch.create_model('vit_base_patch16_224', dtype=dtype, seed=seed,
+    model = timm_tpu_torch.create_model(model_name, dtype=dtype, seed=seed,
                                         drop_path_rate=drop_path_rate, device=device)
+    if model_name.startswith('convnext'):
+        _lift_from_init(model)
     opt = timm_tpu_torch.create_optimizer_v2(model, opt=opt, lr=TRAIN_LR, weight_decay=0.05,
                                              **({'momentum': 0.9} if opt == 'sgd' else {}))
     return timm_tpu_torch.ClassificationTask(
@@ -1890,20 +1905,23 @@ def _train_state(task):
             + list(opt.slots().values()) + ([opt.ema] if opt.ema is not None else []))
 
 
-def _graph_vs_eager(opt_name: str, accum: int, batches, nan_batch, timed: bool):
-    """One ViT-B/16 task (bf16, drop_path 0.1, clip 1.0, EMA 0.9998 with
-    warmup, cosine lr with 3 warmup steps, the guard on) from one state:
-    20 eager steps of the step body (what ``train_step`` stages and runs,
-    the sentinel's poll included) and 20 ``train_step`` calls (a warm-up,
-    a capture, 18 replays), every metric and buffer and the drop
+def _graph_vs_eager(opt_name: str, accum: int, batches, nan_batch, timed: bool,
+                    model_name: str = 'vit_base_patch16_224', steps: int = TRAIN_STEPS,
+                    nan_step: int = TRAIN_GRAPH_NAN_STEP, drop_path_rate: float = 0.1):
+    """One task (ViT-B/16 unless ``model_name``; bf16, drop_path 0.1, clip
+    1.0, EMA 0.9998 with warmup, cosine lr with 3 warmup steps, the guard
+    on) from one state: ``steps`` (20) eager steps of the step body (what
+    ``train_step`` stages and runs, the sentinel's poll included) and as many
+    ``train_step`` calls (a warm-up, a capture, then replays), step
+    ``nan_step`` non-finite, every metric and buffer and the drop
     generator's state compared with torch.equal. With ``timed``: step ms
     of steps 3-20 (CUDA events) and the idle share of 3 profiled steps of
     each; the memory the graph keeps."""
     import torch
     import timm_tpu_torch
     from timm_tpu_torch.layers.drop import get_drop_generator
-    task = _train_task(0, 'cuda', torch.bfloat16, 0.1, opt=opt_name, clip_grad=1.0,
-                       grad_accum_steps=accum)
+    task = _train_task(0, 'cuda', torch.bfloat16, drop_path_rate, opt=opt_name, clip_grad=1.0,
+                       grad_accum_steps=accum, model_name=model_name)
     task.setup_ema(decay=0.9998, warmup=True)
     gen = get_drop_generator(task.model)
     sched, _ = timm_tpu_torch.create_scheduler_v2(
@@ -1911,7 +1929,7 @@ def _graph_vs_eager(opt_name: str, accum: int, batches, nan_batch, timed: bool):
     lrs = [sched.step(i)[0] for i in range(TRAIN_STEPS)]
 
     def batch(i):
-        return nan_batch if i + 1 == TRAIN_GRAPH_NAN_STEP else batches[i % len(batches)]
+        return nan_batch if i + 1 == nan_step else batches[i % len(batches)]
 
     def eager_step(i):
         step = i + 1
@@ -1936,7 +1954,7 @@ def _graph_vs_eager(opt_name: str, accum: int, batches, nan_batch, timed: bool):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         metrics = []
-        for i in range(TRAIN_STEPS):
+        for i in range(steps):
             if i == TRAIN_WARMUP_STEPS:
                 start.record()
             metrics.append(fn(i))
@@ -1944,7 +1962,7 @@ def _graph_vs_eager(opt_name: str, accum: int, batches, nan_batch, timed: bool):
         torch.cuda.synchronize()
         runs[mode] = {'metrics': metrics, 'state': [t.clone() for t in _train_state(task)],
                       'gen': gen.get_state(),
-                      'step_ms': start.elapsed_time(end) / (TRAIN_STEPS - TRAIN_WARMUP_STEPS)}
+                      'step_ms': start.elapsed_time(end) / (steps - TRAIN_WARMUP_STEPS)}
     e, g = runs['eager'], runs['graph']
     names = ['params', 'count', 'lr', 'ema_decay', 'sentinel'] + list(task.optimizer.slots()) + (
         ['ema'] if task.optimizer.ema is not None else [])
@@ -2041,6 +2059,467 @@ def phase_train_graph():
     return timed
 
 
+# ---- ConvNeXt-B: phases convnext_depthwise, convnext_model, convnext_serve,
+# convnext_train and convnext_drivers -----------------------------------------
+CONVNEXT = 'convnext_base'
+CONVNEXT_DROP_PATH = 0.5    # the ConvNeXt-B recipe's rate, stage-wise linear over 36 blocks
+# phase convnext_train's replayed step against its eager body: 5 steps, the
+# 4th non-finite
+CONVNEXT_GRAPH_STEPS, CONVNEXT_NAN_STEP = 5, 4
+CONVNEXT_GRAD_BATCH = 4
+# ConvNeXt-B's depthwise 7x7 convolutions: (H = W, C, blocks) of each stage
+CONVNEXT_DW_STAGES = ((56, 128, 3), (28, 256, 3), (14, 512, 27), (7, 1024, 3))
+CONVNEXT_DRIVER_FLAGS = [
+    '--model', CONVNEXT, '--amp', '-b', '64', '--epochs', '1',
+    '--opt', 'adamw', '--lr', '3e-4', '--weight-decay', '0.05', '--clip-grad', '1.0',
+    '--sched', 'cosine', '--warmup-epochs', '0', '--drop-path', str(CONVNEXT_DROP_PATH),
+    '--smoothing', '0.1', '--mixup', '0.8', '--cutmix', '1.0', '--reprob', '0.25',
+    '--remode', 'const', '--color-jitter', '0.4', '--device-augment', '--device-prefetch', '2',
+    '--workers', '6', '--model-ema', '--model-ema-decay', '0.9998', '--checkpoint-hist', '1',
+    '--seed', '0']
+
+
+def _lift_from_init(model, seed: int = 0):
+    """At init every ConvNeXt block is near the identity (layer scale
+    1e-6, GRN weight and bias 0), so a comparison there would hold whatever
+    the blocks compute: the layer-scale gammas get seeded values in
+    [0.1, 1.0] and GRN's weight and bias values of order 0.1, drawn with
+    numpy and copied in place (the same on every device)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith('ls.gamma'):
+                p.copy_(torch.from_numpy(rng.uniform(0.1, 1.0, p.shape).astype(np.float32)))
+            elif '.grn.' in name:
+                p.copy_(torch.from_numpy((0.1 * rng.standard_normal(p.shape)).astype(np.float32)))
+    return model
+
+
+def _convnext(device, dtype=None):
+    import timm_tpu_torch
+    return _lift_from_init(timm_tpu_torch.create_model(CONVNEXT, dtype=dtype, seed=0,
+                                                       device=device))
+
+
+# cuDNN's depthwise NHWC kernels (channel multiplier 1), as the card names
+# them: the forward, and the input and weight gradients. The profiles of
+# phases convnext_serve and convnext_train count the depthwise convolution
+# apart by these names and check that a forward runs one per block.
+DW_FWD_RE, DW_BWD_RE = r'^conv2d_c1_k1', r'^(dgrad|wgrad)2d_c1_k1'
+
+
+def phase_convnext_depthwise():
+    """ConvNeXt-B's depthwise 7x7 convolution (bf16, channels_last, batch 64,
+    cuDNN through ``F.conv2d``; without its bias, which PyTorch adds in a
+    kernel of its own) at each stage's shape: the forward's and the
+    backward's (``aten.convolution_backward``: input and weight gradients,
+    what autograd calls) device ms from CUDA-graph replays
+    (``harness.graph_ms``), and an eager forward's ms (CUDA events, host
+    time included), against their bounds (the larger of the bytes, each
+    input read and each output written once, over 3.35 TB/s and the
+    operations over the bf16 peak)."""
+    import torch
+    import torch.nn.functional as F
+    from timm_tpu_torch.kernels.harness import graph_ms, time_ms
+    from timm_tpu_torch.kernels.registry import PEAK_BYTES_PER_S, PEAK_OPS_PER_S
+    g = torch.Generator(device='cuda').manual_seed(11)
+    rows = []
+    total = {'fwd_ms': 0.0, 'bwd_ms': 0.0, 'fwd_bound_ms': 0.0, 'bwd_bound_ms': 0.0}
+    with torch.no_grad():
+        for size, chs, blocks in CONVNEXT_DW_STAGES:
+            x = torch.randn(TRAIN_BATCH, size, size, chs, generator=g, device='cuda',
+                            dtype=torch.bfloat16).permute(0, 3, 1, 2)
+            w = (torch.randn(chs, 1, 7, 7, generator=g, device='cuda') * 0.1).to(
+                torch.bfloat16, memory_format=torch.channels_last)
+            dy = torch.randn(x.shape, generator=g, device='cuda', dtype=torch.bfloat16).to(
+                memory_format=torch.channels_last)
+
+            def fwd():
+                return F.conv2d(x, w, None, 1, 3, 1, chs)
+
+            def bwd():
+                return torch.ops.aten.convolution_backward(
+                    dy, x, w, None, [1, 1], [3, 3], [1, 1], False, [0, 0], chs,
+                    [True, True, False])
+            fwd_ms, bwd_ms = graph_ms(fwd), graph_ms(bwd)
+            act = x.numel() * 2
+            ops = 2 * 49 * x.numel()
+            fwd_bound = max((2 * act + w.numel() * 2) / PEAK_BYTES_PER_S,
+                            ops / PEAK_OPS_PER_S['bfloat16']) * 1e3
+            bwd_bound = max((3 * act + 2 * w.numel() * 2) / PEAK_BYTES_PER_S,
+                            2 * ops / PEAK_OPS_PER_S['bfloat16']) * 1e3
+            rows.append({'shape_nhwc': [TRAIN_BATCH, size, size, chs], 'blocks': blocks,
+                         'fwd_ms': fwd_ms, 'bwd_ms': bwd_ms,
+                         'fwd_call_ms': time_ms(fwd, iters=20, warmup=3),
+                         'fwd_bound_ms': fwd_bound, 'bwd_bound_ms': bwd_bound,
+                         'bound_by': 'bytes'})
+            for k, v in (('fwd_ms', fwd_ms), ('bwd_ms', bwd_ms), ('fwd_bound_ms', fwd_bound),
+                         ('bwd_bound_ms', bwd_bound)):
+                total[k] += blocks * v
+            del x, w, dy
+    emit({'phase': 'convnext_depthwise', 'model': CONVNEXT, 'dtype': 'bfloat16',
+          'batch': TRAIN_BATCH, 'stages': rows, 'per_step_36_blocks': total})
+    check(all(r['fwd_ms'] > 0 and r['bwd_ms'] > 0 for r in rows),
+          'convnext_depthwise: a convolution took no time')
+    return total
+
+
+def _families(kernels, counts, reps: int):
+    """Device ms and kernel counts per call by kernel family: the depthwise
+    convolution's forward and backward (cuDNN's depthwise kernels), the
+    other convolutions, GEMMs, layout transposes, copies and casts, the
+    port's kernels, and the norm / elementwise / reduction chains."""
+    ms, n = {}, {}
+    for name, t in kernels.items():
+        if re.search(DW_FWD_RE, name):
+            fam = 'depthwise_conv_fwd'
+        elif re.search(DW_BWD_RE, name):
+            fam = 'depthwise_conv_bwd'
+        elif re.search(r'fused_adamw|augment_epilogue|flash_fwd', name):
+            fam = re.search(r'fused_adamw|augment_epilogue|flash_fwd', name).group(0)
+        elif re.search(r'nchwToNhwc|nhwcToNchw|transpose', name, re.I):
+            fam = 'layout_transpose'
+        elif re.search(r'conv|fprop|dgrad|wgrad', name, re.I):
+            fam = 'conv'
+        elif re.search(r'gemm|cutlass|xmma|cublas|matmul|nvjet', name, re.I):
+            fam = 'gemm'
+        elif re.search(r'copy', name, re.I):
+            fam = 'copy_or_cast'
+        else:
+            fam = 'norm_elementwise_reduce'
+        ms[fam] = ms.get(fam, 0.0) + t
+        n[fam] = n.get(fam, 0) + counts[name] / reps
+    return {'ms': ms, 'kernels': n}
+
+
+def phase_convnext_model():
+    """convnext_base at full width and depth (dims 128/256/512/1024, depths
+    3/3/27/3, 224 px), random weights from seed 0 with layer scale and GRN
+    lifted from init: bf16 on the card against the same weights in fp32 on
+    the CPU, batch 8."""
+    import torch
+    x = _images(8)
+    card = _convnext('cuda', torch.bfloat16).eval()
+    plain = _convnext('cpu').eval()
+    with torch.inference_mode():
+        xc = torch.from_numpy(x).cuda()
+        stem_dtype = str(card._stem(xc).dtype)
+        logits_card = card(xc).float().cpu().numpy()
+        t0 = time.perf_counter()
+        logits_cpu = plain(torch.from_numpy(x)).numpy()
+        cpu_s = time.perf_counter() - t0
+    err = rel_l2(logits_card, logits_cpu)
+    emit({'phase': 'convnext_model', 'model': CONVNEXT, 'batch': 8, 'dtype': 'bfloat16',
+          'params': sum(p.numel() for p in card.parameters()),
+          'leaves': len(list(card.parameters())), 'stem_output_dtype': stem_dtype,
+          'rel_l2_vs_cpu_fp32': err, 'tol': MODEL_REL_L2_TOL,
+          'finite': bool(np.isfinite(logits_card).all()), 'cpu_fp32_seconds': cpu_s})
+    check(np.isfinite(logits_card).all(), 'convnext_model: non-finite logits on the card')
+    check(logits_card.shape == (8, 1000), f'convnext_model: logits shape {logits_card.shape}')
+    check(err <= MODEL_REL_L2_TOL, f'convnext_model: rel L2 {err} > {MODEL_REL_L2_TOL}')
+    del card, plain
+    torch.cuda.empty_cache()
+
+
+def phase_convnext_serve():
+    """The engine serving convnext_base in bf16 (weights lifted from init),
+    one CUDA graph per bucket captured at add_model: 200 requests in the
+    bursts of phase serve; served rows against their direct forward; each
+    bucket's replay bit for bit against an eager forward; eager and
+    replayed forward ms per bucket (CUDA events); the graphs' bytes; and
+    under torch.profiler 3 replays of bucket 64, by kernel family, with the
+    idle share. No kernel of the port lies on this path (its convolutions
+    are cuDNN's): the wrappers' counts must not move."""
+    import torch
+    from timm_tpu_torch import InferenceEngine
+    from timm_tpu_torch.kernels import registry
+    from timm_tpu_torch.kernels.harness import time_ms
+    counters = registry.launch_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    n = sum(SERVE_BURSTS)
+    images = _images(n, seed=1)
+    engine = InferenceEngine(buckets=SERVE_BUCKETS, max_wait_ms=5.0, device='cuda')
+    engine.add_model(CONVNEXT, factory=lambda: _convnext('cuda', torch.bfloat16))
+    engine.start()
+    futures, submitted, wall = _serve_bursts(engine, images)
+    engine.shutdown(drain=True)
+    stats = engine.snapshot_stats()
+    served = np.stack([f.result() for f in futures])
+    lat_ms = np.array([(f.done_at - s) * 1e3 for f, s in zip(futures, submitted)])
+    res = engine.pool.acquire(CONVNEXT)
+    model, graphs = res.model, engine.aot_executables(CONVNEXT)
+    per_bucket, replay_equal = {}, {}
+    with torch.inference_mode():
+        direct = np.concatenate([
+            model(torch.from_numpy(images[j:j + 8]).cuda()).float().cpu().numpy()
+            for j in range(0, n, 8)])
+        for b in SERVE_BUCKETS:
+            x = torch.from_numpy(_images(b, seed=10 + b))
+            replayed = graphs[b].run(x.pin_memory())
+            eager = model(x.cuda()).float()
+            replay_equal[str(b)] = bool(torch.equal(replayed, eager))
+            xc = x.cuda()
+            graphs[b].static_in.copy_(xc)
+            eager_ms = time_ms(lambda: model(xc), iters=5, warmup=1)
+            replay_ms = time_ms(graphs[b].graph.replay, iters=10, warmup=2)
+            per_bucket[str(b)] = {'forward_ms': eager_ms, 'replay_ms': replay_ms,
+                                  'replay_img_per_s': b / replay_ms * 1e3}
+        reps = 3
+        graphs[64].static_in.copy_(torch.from_numpy(_images(64, seed=3)).cuda())
+        kernels, counts, replay_wall_ms = _profile_kernels(graphs[64].graph.replay, reps)
+    busy = sum(kernels.values())
+    fams = _families(kernels, counts, reps)
+    errs = [rel_l2(served[j], direct[j]) for j in range(n)]
+    prewarm = stats['prewarm'][CONVNEXT]
+    moved = {k: fn.launches - before[k] for k, fn in counters.items() if fn.launches != before[k]}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    emit({'phase': 'convnext_serve', 'model': CONVNEXT, 'dtype': 'bfloat16',
+          'requests': n, 'completed': stats['completed'], 'failed': stats['failed'],
+          'steps_by_bucket': stats['steps_by_bucket'],
+          'replays_by_bucket': stats['replays_by_bucket'],
+          'p50_ms': float(np.percentile(lat_ms, 50)), 'p99_ms': float(np.percentile(lat_ms, 99)),
+          'img_per_s': n / wall, 'wall_s': wall, 'per_bucket': per_bucket,
+          'max_rel_l2_vs_direct': max(errs), 'tol': SERVE_REL_L2_TOL,
+          'prewarm_ms': prewarm['ms'], 'graph_bytes': prewarm['graph_bytes'],
+          'replay_equals_eager_bit_for_bit': replay_equal, 'wrapper_launches': moved,
+          'profiled_bucket': 64, 'replay_wall_ms': replay_wall_ms,
+          'replay_device_ms': busy if kernels else 'not measured',
+          'replay_idle_share': 1.0 - busy / replay_wall_ms if kernels else 'not measured',
+          'replay_kernels_per_forward': sum(counts.values()) / reps if kernels
+          else 'not measured',
+          'replay_ms_by_family': fams['ms'], 'replay_kernels_by_family': fams['kernels'],
+          'top_kernels': [{'kernel': k[:120], 'ms': v} for k, v in top]})
+    check(stats['completed'] == n and stats['failed'] == 0,
+          f'convnext_serve: {stats["failed"]} failed requests')
+    check(set(stats['steps_by_bucket']) == set(SERVE_BUCKETS),
+          f'convnext_serve: buckets dispatched {stats["steps_by_bucket"]}')
+    check(stats['replays_by_bucket'] == stats['steps_by_bucket'],
+          f'convnext_serve: replays {stats["replays_by_bucket"]} for steps {stats["steps_by_bucket"]}')
+    check(prewarm['mode'] == 'graph' and prewarm['programs'] == len(SERVE_BUCKETS),
+          f'convnext_serve: prewarm captured {prewarm["programs"]} graphs ({prewarm["mode"]})')
+    check(not moved, f'convnext_serve: the port\'s kernels launched {moved}')
+    check(bool(np.isfinite(served).all()), 'convnext_serve: non-finite logits')
+    check(max(errs) <= SERVE_REL_L2_TOL, f'convnext_serve: max rel L2 {max(errs)} > {SERVE_REL_L2_TOL}')
+    check(all(replay_equal.values()), f'convnext_serve: replay vs eager bit for bit: {replay_equal}')
+    check(bool(kernels), 'convnext_serve: the profiler saw no kernel of the replays')
+    check(fams['kernels'].get('depthwise_conv_fwd') == 36,
+          f'convnext_serve: {fams["kernels"].get("depthwise_conv_fwd")} depthwise kernels a '
+          'forward, want one a block (36)')
+    del engine, res, model, graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_convnext_train():
+    """ClassificationTask on convnext_base (bf16 compute, fp32 parameters,
+    layer scale lifted from init) with drop path 0.5, label smoothing 0.1,
+    AdamW (wd 0.05 with the mask), clip 1.0, EMA 0.9998, cosine with 3
+    warmup steps: 20 steps at batch 64 on one fixed batch, steps 3-20
+    replays of one graph; the wrappers' counts per step; under the
+    profiler 3 more replayed steps by kernel family (the depthwise
+    convolution's forward and backward apart) with the idle share. Then one
+    step's gradients, bf16 on the card against fp32 on the CPU at batch 4
+    (drop path 0), and the replayed step against its eager body bit for bit
+    over 5 steps from one state (drop path 0.5, the 4th step non-finite)."""
+    import torch
+    import timm_tpu_torch
+    from timm_tpu_torch.kernels import flash_attention, fused_adamw
+    task = _train_task(0, 'cuda', torch.bfloat16, CONVNEXT_DROP_PATH, clip_grad=1.0,
+                       model_name=CONVNEXT)
+    task.setup_ema(decay=0.9998)
+    sched, _ = timm_tpu_torch.create_scheduler_v2(
+        TRAIN_LR, 'cosine', num_epochs=TRAIN_STEPS, warmup_epochs=3, warmup_lr=1e-6)
+    batch = _train_batch(TRAIN_BATCH, 4, 'cuda')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    flash_attention.launches = fused_adamw.launches = 0
+    metrics, adamw_steps, flash_steps = [], [], []
+    t0 = time.perf_counter()
+    for step in range(TRAIN_STEPS):
+        if step == TRAIN_WARMUP_STEPS:
+            start.record()
+        f0, a0 = flash_attention.launches, fused_adamw.launches
+        metrics.append(task.train_step(batch, lr=sched.step(step)[0], step=step + 1))
+        flash_steps.append(flash_attention.launches - f0)
+        adamw_steps.append(fused_adamw.launches - a0)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {'flash_attention': flash_attention.launches, 'fused_adamw': fused_adamw.launches}
+    step_ms = start.elapsed_time(end) / (TRAIN_STEPS - TRAIN_WARMUP_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    reps = 3
+    kernels, counts, prof_wall_ms = _profile_kernels(
+        lambda: task.train_step(batch, lr=1e-5, step=TRAIN_STEPS + 1), reps)
+    replayed = _per_step(counts, reps)
+    busy = sum(kernels.values())
+    fams = _families(kernels, counts, reps)
+    losses = [float(m['loss']) for m in metrics]
+    row = {'phase': 'convnext_train', 'model': CONVNEXT, 'dtype': 'bfloat16',
+           'batch': TRAIN_BATCH, 'steps': TRAIN_STEPS, 'drop_path_rate': CONVNEXT_DROP_PATH,
+           'losses': losses, 'grad_norms': [float(m['grad_norm']) for m in metrics],
+           'step_ms': step_ms, 'img_per_s': TRAIN_BATCH / step_ms * 1e3, 'wall_s': wall,
+           'peak_memory_gb': peak_gb, 'graph_pool_bytes': task.train_graphs.pool_bytes(),
+           'graph_static_input_bytes': task.train_graphs.static_bytes(),
+           'captures': task.train_graphs.captures, 'replays': task.train_graphs.replays,
+           'wrapper_fused_adamw_launches_per_step': adamw_steps,
+           'wrapper_flash_launches_per_step': flash_steps, 'launches': launches,
+           'profiled_replays': reps, 'replayed_kernels_per_step': replayed if kernels else
+           'not measured', 'replay_wall_ms_per_step': prof_wall_ms,
+           'replay_device_ms_per_step': busy if kernels else 'not measured',
+           'replay_idle_share': 1.0 - busy / prof_wall_ms if kernels else 'not measured',
+           'replay_ms_by_family': fams['ms'], 'replay_kernels_by_family': fams['kernels'],
+           'top_kernels': [{'kernel': k[:120], 'ms': v}
+                           for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]]}
+    del task
+    torch.cuda.empty_cache()
+
+    # one step's gradients, bf16 on the card against fp32 on the CPU
+    grad_batch = _train_batch(CONVNEXT_GRAD_BATCH, 5, 'cpu')
+    grads = {}
+    for device, dtype in (('cuda', torch.bfloat16), ('cpu', None)):
+        t = _train_task(0, device, dtype, 0.0, nonfinite_guard=False, model_name=CONVNEXT)
+        t.train_step(grad_batch, lr=0.0, step=1)
+        grads[device] = t.optimizer.flat_grad.float().cpu()
+        del t
+    torch.cuda.empty_cache()
+    g_card, g_cpu = grads['cuda'], grads['cpu']
+    grad_err = float((g_card - g_cpu).norm() / g_cpu.norm())
+    row.update(grad_batch=CONVNEXT_GRAD_BATCH, grad_rel_l2_bf16_card_vs_fp32_cpu=grad_err,
+               grad_tol=GRAD_REL_L2_TOL, grads_finite=bool(torch.isfinite(g_card).all()))
+
+    # the replayed step against its eager body, from one state
+    batches = [_train_batch(TRAIN_BATCH, 60 + i, 'cuda') for i in range(2)]
+    nan_batch = dict(batches[0], input=batches[0]['input'].clone())
+    nan_batch['input'][5, 50, 50, 2] = float('nan')
+    graph_row, task = _graph_vs_eager('adamw', 1, batches, nan_batch, False, model_name=CONVNEXT,
+                                      steps=CONVNEXT_GRAPH_STEPS, nan_step=CONVNEXT_NAN_STEP,
+                                      drop_path_rate=CONVNEXT_DROP_PATH)
+    del task
+    gc.collect()
+    torch.cuda.empty_cache()
+    row['graph_vs_eager'] = graph_row
+    emit(row)
+    check(all(np.isfinite(losses)), f'convnext_train: non-finite loss in {losses}')
+    check(losses[-1] < losses[0], f'convnext_train: last loss {losses[-1]} not below {losses[0]}')
+    check(adamw_steps == [1, 1] + [0] * (TRAIN_STEPS - 2),
+          f'convnext_train: fused_adamw wrapper launches per step {adamw_steps}')
+    check(flash_steps == [0] * TRAIN_STEPS, f'convnext_train: flash launches per step {flash_steps}')
+    check(row['captures'] == 1, 'convnext_train: the step was not captured once')
+    check(bool(kernels) and replayed['fused_adamw'] == 1 and replayed['flash_attention'] == 0,
+          f'convnext_train: a replayed step ran {replayed}')
+    check(fams['kernels'].get('depthwise_conv_fwd') == 36
+          and fams['kernels'].get('depthwise_conv_bwd', 0) >= 72,
+          f'convnext_train: depthwise kernels a step {fams["kernels"]}, want 36 forward and '
+          'an input and a weight gradient a block')
+    check(bool(torch.isfinite(g_card).all()), 'convnext_train: non-finite gradients on the card')
+    check(grad_err <= GRAD_REL_L2_TOL, f'convnext_train: gradient rel L2 {grad_err} > {GRAD_REL_L2_TOL}')
+    check(not graph_row['buffers_that_differ'],
+          f'convnext_train: replays differ from eager steps in {graph_row["buffers_that_differ"]}')
+    check(not graph_row['steps_whose_metrics_differ'],
+          f'convnext_train: metrics differ at steps {graph_row["steps_whose_metrics_differ"]}')
+    check(graph_row['skipped_steps'] == [CONVNEXT_NAN_STEP],
+          f'convnext_train: the guard skipped steps {graph_row["skipped_steps"]}')
+    check(graph_row['captures'] == 1 and graph_row['replays'] >= CONVNEXT_GRAPH_STEPS - 1,
+          f'convnext_train: {graph_row["captures"]} captures, {graph_row["replays"]} replays')
+    return launches
+
+
+# the train driver under torch.profiler, in a process of its own: after a
+# profiled driver run, the profiler of that process misses kernels of later
+# sessions (seen on the card), so phase drivers' profiled run C stays last in
+# this process and this run gets a fresh one. Its last stdout line is JSON.
+_PROFILED_TRAIN = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from timm_tpu_torch import train
+from timm_tpu_torch.kernels import augment_epilogue, flash_attention, fused_adamw
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    rc = train.main(sys.argv[1:])
+    torch.cuda.synchronize()
+counts = {}
+for e in prof.events():
+    if e.device_type == DeviceType.CUDA and not getattr(e, 'is_user_annotation', False):
+        counts[e.name] = counts.get(e.name, 0) + 1
+print(json.dumps({'rc': rc, 'counts': counts, 'launches': {
+    k.__name__: k.launches for k in (flash_attention, fused_adamw, augment_epilogue)}}))
+"""
+
+
+def phase_convnext_drivers():
+    """``python -m timm_tpu_torch.train --model convnext_base``'s ``main(argv)``
+    under torch.profiler in a subprocess, from a folder of seeded PNGs
+    written as phase input_train writes its own (576 train, 192
+    validation): --device-augment with 'const' erasing and Mixup / CutMix,
+    one epoch of 9 updates, EMA; the profiler must see the augment-epilogue
+    and fused AdamW kernels run once an update. Then ``validate`` on its
+    EMA weights in this process, whose loss must be within
+    DRIVER_EVAL_REL_TOL of the run's last EMA evaluation."""
+    import contextlib
+    import csv
+    import shutil
+    import tempfile
+
+    import torch
+
+    from timm_tpu_torch import validate
+    from timm_tpu_torch.kernels import augment_epilogue, flash_attention, fused_adamw
+    kernels = (flash_attention, fused_adamw, augment_epilogue)
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_convnext_')
+    row = {'phase': 'convnext_drivers', 'model': CONVNEXT, 'dtype': 'bfloat16',
+           'flags': ' '.join(CONVNEXT_DRIVER_FLAGS), 'wall_s': {}, 'launches': {}}
+    try:
+        data, out = os.path.join(tmp, 'data'), os.path.join(tmp, 'out')
+        n_train = _write_image_folder(os.path.join(data, 'train'), INPUT_IMAGES_PER_CLASS)
+        n_val = _write_image_folder(os.path.join(data, 'validation'), DRIVER_VALIDATION_PER_CLASS,
+                                    seed=1)
+        updates = n_train // TRAIN_BATCH
+        row.update(train_images=n_train, validation_images=n_val, updates=updates)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-c', _PROFILED_TRAIN, *CONVNEXT_DRIVER_FLAGS, '--data-dir', data,
+             '--output', out, '--experiment', 'cnx'],
+            capture_output=True, text=True, cwd=HERE, timeout=900)
+        row['wall_s']['train_subprocess'] = time.perf_counter() - t0
+        check(proc.returncode == 0, f'convnext_drivers: the train subprocess exited '
+                                    f'{proc.returncode}: {proc.stderr[-2000:]}')
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        ran = _per_step(result['counts'], 1)
+        row['launches']['train'] = result['launches']
+        row['train_kernels_ran'] = ran
+        check(result['rc'] == 0, f'convnext_drivers: train exited {result["rc"]}')
+        with open(os.path.join(out, 'cnx', 'summary.csv')) as f:
+            rows = list(csv.DictReader(f))
+        ema_loss = float(rows[-1]['eval_loss_ema'])
+        row['final_ema_eval'] = {'loss': ema_loss, 'top1': float(rows[-1]['eval_top1_ema'])}
+        row['train_loss'] = float(rows[-1]['train_loss'])
+        eval_argv = ['--model', CONVNEXT, '--checkpoint', os.path.join(out, 'cnx', 'last.npz'),
+                     '--use-ema', '--amp', '-b', '64', '--workers', '6', '--data-dir', data]
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            val = validate.validate(validate.parser.parse_args(eval_argv))
+        row['wall_s']['validate'] = time.perf_counter() - t0
+        row['launches']['validate'] = {k.__name__: k.launches for k in kernels}
+        row['validate'] = {'loss': val['loss'], 'top1': val['top1'], 'img_per_s': val['img_per_s']}
+        check(ran['fused_adamw'] == updates and ran['augment_epilogue'] == updates
+              and ran['flash_attention'] == 0,
+              f'convnext_drivers: the profiler saw {ran} for {updates} updates')
+        check(abs(val['loss'] - ema_loss) <= DRIVER_EVAL_REL_TOL * abs(ema_loss),
+              f'convnext_drivers: validate loss {val["loss"]} vs the EMA eval {ema_loss}')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        emit(row)  # what was measured, also when a check failed
+    torch.cuda.empty_cache()
+    return {k.__name__: sum(r[k.__name__] for r in row['launches'].values()) for k in kernels}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2072,9 +2551,16 @@ def main() -> int:
         del task, batch
         torch.cuda.empty_cache()
         phase_train_graph()
+        # ConvNeXt-B's profiled phases run before phase drivers' profiled
+        # run C, after which the profiler misses kernels
+        phase_convnext_depthwise()
+        phase_convnext_model()
+        phase_convnext_serve()
+        convnext_train_launches = phase_convnext_train()
         input_launches = phase_input_train(train_step_ms)
         recipe_launches = phase_recipe_train()
         driver_launches = phase_drivers()
+        convnext_driver_launches = phase_convnext_drivers()
     except Exception:
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -2089,10 +2575,14 @@ def main() -> int:
                 'fused_adamw': {'train': train_launches['fused_adamw'],
                                 'input_train': input_launches['fused_adamw'],
                                 'recipe_train': recipe_launches['fused_adamw'],
-                                'drivers': driver_launches['fused_adamw']},
+                                'drivers': driver_launches['fused_adamw'],
+                                'convnext_train': convnext_train_launches['fused_adamw'],
+                                'convnext_drivers': convnext_driver_launches['fused_adamw']},
                 'augment_epilogue': {'input_train': input_launches['augment_epilogue'],
                                      'recipe_train': recipe_launches['augment_epilogue'],
-                                     'drivers': driver_launches['augment_epilogue']}}
+                                     'drivers': driver_launches['augment_epilogue'],
+                                     'convnext_drivers':
+                                         convnext_driver_launches['augment_epilogue']}}
     previous_rows = {'flash_attention': {r['case']: r for r in flash_checks['previous']},
                      'augment_epilogue': {r['case']: r for r in augment_rows}}
     lines = []

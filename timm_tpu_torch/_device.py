@@ -5,7 +5,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ['resolve_device']
+__all__ = ['resolve_device', 'use_full_fp32']
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -18,3 +18,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             'timm_tpu_torch runs on a CUDA device by default and none is available; '
             "pass device='cpu' to run the plain PyTorch path on the CPU")
     return dev
+
+
+def use_full_fp32(device: torch.device) -> None:
+    """On a CUDA device, compute fp32 convolutions and matmuls in fp32: turn
+    off TF32, which cuDNN allows by default (10-bit mantissa inputs), so an
+    fp32 model on the card computes what the JAX package computes in fp32.
+    bf16 compute (``--amp``) is not affected."""
+    if device.type == 'cuda':
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False

@@ -5,7 +5,8 @@ Counterpart of the root ``inference.py``, with its command line: top-k
 class indices and probabilities of every image of a folder dataset,
 written as CSV, JSON or (with pandas and pyarrow installed) parquet. Every
 batch, the last one padded, runs at one bucket shape. It runs on ``cuda``
-unless ``--device cpu`` is given, and raises with no card.
+unless ``--device cpu`` is given, and raises with no card; on the card TF32
+is off (``_device.use_full_fp32``).
 
 ``--label-type`` other than ``index`` (class names from ImageNet metadata),
 ``--block-scan`` and ``--pretrained`` raise ``NotImplementedError`` naming
@@ -64,7 +65,7 @@ _UNPORTED = (('pretrained', 'A.5.1: no hub; pass --checkpoint'), ('label_type', 
 
 
 def main(argv=None) -> int:
-    from ._device import resolve_device
+    from ._device import resolve_device, use_full_fp32
     from .data import resolve_data_config
     from .serve import batch_bucket, pad_rows, strip_rows
     from .task import Normalize
@@ -84,6 +85,7 @@ def main(argv=None) -> int:
             raise RuntimeError('--output-type parquet needs pandas and pyarrow, which are not '
                                'installed; use csv or json') from e
     device = resolve_device(args.device)
+    use_full_fp32(device)
     model = build_model(args, device)
     data_config = resolve_data_config(vars(args), model=model)
     dataset, loader = eval_loader(args, data_config, device)

@@ -142,6 +142,12 @@ def _vector_aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded_scale(scale: float, dtype: torch.dtype) -> float:
+    """``scale`` rounded to q's dtype, as the TPU kernel rounds it."""
+    return torch.tensor(scale, dtype=dtype).item()
+
+
 def _launch(q, k, v, key_mask, scale: float):
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise NotImplementedError(
@@ -159,7 +165,7 @@ def _launch(q, k, v, key_mask, scale: float):
     if key_mask is not None:
         key_mask = key_mask.to(device=q.device).contiguous()
         mask_ptr, mask_sb = key_mask.data_ptr(), key_mask.stride(0)
-    scale_t = torch.tensor(scale, dtype=q.dtype).item()  # the TPU kernel rounds scale to q's dtype
+    scale_t = _rounded_scale(scale, q.dtype)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -199,15 +205,19 @@ def flash_attention_backward(q, k, v, key_mask, scale: float, grad_out):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _forward(q, k, v, key_mask, scale: float):
+    if q.device.type == 'cpu':
+        return flash_attention_reference(
+            q, k, v, None if key_mask is None else key_mask[:, None, None, :], scale)
+    return _launch(q, k, v, key_mask, scale)
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, key_mask, scale):
         ctx.save_for_backward(q, k, v, key_mask)
         ctx.scale = scale
-        if q.device.type == 'cpu':
-            return flash_attention_reference(
-                q, k, v, None if key_mask is None else key_mask[:, None, None, :], scale)
-        return _launch(q, k, v, key_mask, scale)
+        return _forward(q, k, v, key_mask, scale)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -235,7 +245,11 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None):
         raise ValueError(f'flash_attention runs on cuda or cpu tensors; got {q.device}')
     if key_mask is not None:
         key_mask = key_mask.to(device=q.device)
-    return _FlashAttention.apply(q, k, v, key_mask, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, key_mask, scale)
+    # no gradient asked for: the same forward without the autograd node's
+    # host time (tens of microseconds, more than the kernel at bucket 1)
+    return _forward(q, k, v, key_mask, scale)
 
 
 flash_attention.launches = 0

@@ -210,7 +210,7 @@ fused_adamw.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# registry entry: the JAX registry's cases, then ViT-B/16's leaf set
+# registry entry: the JAX registry's cases, then ViT-B/16's and ConvNeXt-B's leaf sets
 
 _ALIGN = 4  # elements: the optimizer starts every leaf on a 16-byte boundary
 
@@ -221,7 +221,7 @@ def _model_leaves(name: str):
     ``name``, in ``named_parameters`` order, with the optimizer's mask."""
     from ..models import create_model
     from ..optim import param_groups_weight_decay
-    model = create_model(name, device='cpu')
+    model = create_model(name, device='meta')  # shapes only
     mask = param_groups_weight_decay(model)
     return tuple((tuple(p.shape), mask[n]) for n, p in model.named_parameters())
 
@@ -346,6 +346,11 @@ def _register():
                        live=dict(model='vit_base_patch16_224', mu_dtype='bfloat16'),
                        statics=dict(weight_decay=0.05),
                        desc='the same with a bf16 first moment'),
+            KernelCase(name='convnext_b',
+                       dry=mixed, live=dict(model='convnext_base'),
+                       statics=dict(weight_decay=0.05),
+                       desc="ConvNeXt-B's leaf set and decay mask (344 leaves, every "
+                            "ndim <= 1 leaf and bias undecayed), its train step's update"),
         ),
     ))
 

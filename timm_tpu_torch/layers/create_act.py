@@ -22,6 +22,7 @@ _ACT_FNS = {
     'identity': lambda x: x,
     'gelu': gelu,
     'gelu_erf': gelu,
+    'tanh': torch.tanh,
 }
 
 

@@ -18,7 +18,7 @@ bf16(keep_prob) rather than multiplied by a rounded reciprocal.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import torch
 from torch import nn
@@ -113,6 +113,23 @@ def get_drop_generator(module: nn.Module) -> Optional[torch.Generator]:
     return next(iter(gens.values()), None)
 
 
-def calculate_drop_path_rates(drop_path_rate: float, depth: int) -> List[float]:
-    """Linearly increasing per-block drop-path rates."""
-    return [drop_path_rate * i / max(depth - 1, 1) for i in range(depth)]
+def calculate_drop_path_rates(
+        drop_path_rate: float,
+        depths: Union[int, List[int]],
+        stagewise: bool = False,
+) -> Union[List[float], List[List[float]]]:
+    """Linearly increasing per-block drop-path rates over all blocks; with
+    ``stagewise`` (a list of per-stage depths) grouped per stage."""
+    if isinstance(depths, int):
+        if stagewise:
+            raise ValueError('stagewise=True requires a list of per-stage depths')
+        depths = [depths]
+    total = sum(depths)
+    rates = [drop_path_rate * i / max(total - 1, 1) for i in range(total)]
+    if not stagewise:
+        return rates
+    out, idx = [], 0
+    for d in depths:
+        out.append(rates[idx:idx + d])
+        idx += d
+    return out

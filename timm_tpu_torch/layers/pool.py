@@ -1,12 +1,14 @@
-"""Global pooling of token sequences (counterpart of timm_tpu/layers/pool.py
-``global_pool_nlc``)."""
+"""Global pooling (counterpart of timm_tpu/layers/pool.py): of token
+sequences (``global_pool_nlc``) and of NHWC feature maps
+(``SelectAdaptivePool2d``)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch import nn
 
-__all__ = ['global_pool_nlc']
+__all__ = ['SelectAdaptivePool2d', 'adaptive_pool_feat_mult', 'global_pool_nlc']
 
 
 def global_pool_nlc(
@@ -55,3 +57,43 @@ def global_pool_nlc(
     if pool_type == 'avgmax':
         return 0.5 * (_masked_max() + _masked_avg())
     raise ValueError(f'Unknown pool type {pool_type}')
+
+
+def adaptive_pool_feat_mult(pool_type: str = 'avg') -> int:
+    return 2 if pool_type.endswith('catavgmax') else 1
+
+
+class SelectAdaptivePool2d(nn.Module):
+    """Global pooling over the spatial dims of NHWC input to (B, C) (or
+    (B, 2C) for 'catavgmax'); '' is the identity. The 'fast' prefixes name
+    the same NHWC reductions, as in the JAX package."""
+
+    def __init__(self, output_size=1, pool_type: str = 'avg', flatten: bool = False,
+                 input_fmt: str = 'NHWC'):
+        super().__init__()
+        if input_fmt != 'NHWC':
+            raise NotImplementedError(f'SelectAdaptivePool2d over {input_fmt}: the port pools NHWC')
+        self.pool_type = pool_type or ''
+        self.flatten = flatten
+
+    def is_identity(self) -> bool:
+        return not self.pool_type
+
+    def feat_mult(self) -> int:
+        return adaptive_pool_feat_mult(self.pool_type)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.pool_type:
+            return x
+        pt = self.pool_type
+        if pt.startswith('fast'):
+            pt = pt[4:].lstrip('_') or 'avg'
+        if pt == 'avg':
+            return x.mean(dim=(1, 2))
+        if pt == 'max':
+            return x.amax(dim=(1, 2))
+        if pt == 'avgmax':
+            return 0.5 * (x.mean(dim=(1, 2)) + x.amax(dim=(1, 2)))
+        if pt == 'catavgmax':
+            return torch.cat([x.mean(dim=(1, 2)), x.amax(dim=(1, 2))], dim=-1)
+        raise ValueError(f'Invalid pool type: {self.pool_type}')

@@ -8,4 +8,5 @@ from ._registry import (
     generate_default_cfgs, get_pretrained_cfg, is_model, list_models, model_entrypoint,
     register_model, split_model_name_tag,
 )
+from .convnext import ConvNeXt
 from .vision_transformer import Block, VisionTransformer

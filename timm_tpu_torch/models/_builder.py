@@ -5,7 +5,8 @@ Weights are drawn on the CPU from a ``torch.Generator`` seeded with ``seed``
 and then moved to ``device``, so one seed gives the same weights on every
 device. The drop-path and dropout masks of training mode draw from a second
 generator on ``device``, seeded with ``seed`` too. ``device`` defaults to
-``cuda``.
+``cuda``; ``device='meta'`` builds the module tree with shapes and no
+storage (no draws, no drop generator), for callers that need shapes only.
 """
 from __future__ import annotations
 
@@ -64,9 +65,15 @@ def build_model_with_cfg(
     dev = resolve_device(device)
     cfg = resolve_pretrained_cfg(variant, pretrained_cfg, pretrained_cfg_overlay)
     _update_default_model_kwargs(cfg, kwargs)
-    generator = torch.Generator().manual_seed(int(seed))
-    model = model_cls(generator=generator, **kwargs)
+    if dev.type == 'meta':
+        # shapes only (the counterpart of nnx.eval_shape): no storage, no draws
+        with torch.device('meta'):
+            model = model_cls(**kwargs)
+    else:
+        model = model_cls(generator=torch.Generator().manual_seed(int(seed)), **kwargs)
     model.pretrained_cfg = cfg
     model.default_cfg = cfg.to_dict()
+    if dev.type == 'meta':
+        return model
     model = model.to(dev)
     return set_drop_generator(model, torch.Generator(device=dev).manual_seed(int(seed)))

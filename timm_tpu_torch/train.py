@@ -3,10 +3,13 @@
 
 Counterpart of the root ``train.py`` of the JAX package, with its command
 line: the same flags, defaults and two-stage ``--config`` parse. It runs on
-``cuda`` unless ``--device cpu`` is given, and raises with no card.
+``cuda`` unless ``--device cpu`` is given, and raises with no card. On the
+card TF32 is off (``_device.use_full_fp32``): an fp32 model's convolutions
+and matmuls compute in fp32, as the JAX package's do; ``--amp`` is bf16.
 
 One process, one device. Each update is ``ClassificationTask.train_step``:
-the flash-attention kernel in every block's forward, and the fused AdamW +
+for a ViT the flash-attention kernel in every block's forward (a ConvNeXt's
+convolutions are cuDNN's, as XLA computes them in JAX), and the fused AdamW +
 EMA kernel for the update (``--opt adamw``; ``--fused-update`` is accepted
 and changes nothing, since the port's AdamW step is always that kernel).
 With ``--device-augment`` the loader ends in the augment program, one CUDA
@@ -256,7 +259,7 @@ _UNPORTED = (
     ('lr_cycle_decay', 'A.5.5'), ('lr_cycle_limit', 'A.5.5'), ('lr_k_decay', 'A.5.5'),
     ('warmup_prefix', 'A.5.5'), ('cooldown_epochs', 'A.5.5'),
     ('bce_loss', 'A.5.5'), ('bce_sum', 'A.5.5'), ('bce_target_thresh', 'A.5.5'),
-    ('split_bn', 'A.5.6: ViT has no BatchNorm; split BN comes with the CNNs'),
+    ('split_bn', 'A.5.6: split BN comes with norm_act.py, the ResNet step'),
     ('epoch_repeats', 'A.5.1: the JAX script parses it and never reads it'),
     ('worker_seeding', 'A.5.1: the JAX script parses it and never reads it'),
     ('amp_dtype', 'A.5.7: --amp is bf16; the JAX script parses --amp-dtype and never reads it'),
@@ -334,7 +337,7 @@ def main(argv=None) -> int:
     args, args_text = _parse_args(argv)
     check_unported(args)
 
-    from ._device import resolve_device
+    from ._device import resolve_device, use_full_fp32
     from .data import Mixup, resolve_data_config
     from .data.loader import DevicePrefetcher
     from .loss import JsdCrossEntropy, LabelSmoothingCrossEntropy, SoftTargetCrossEntropy
@@ -352,6 +355,7 @@ def main(argv=None) -> int:
     if not logging.root.handlers:
         setup_default_logging()
     device = resolve_device(args.device)
+    use_full_fp32(device)
     injector = FaultInjector(args.fault_inject)
     random_seed(args.seed, 0)
     _logger.info(f'Training on {device}')

@@ -9,7 +9,8 @@ folder dataset and reports top-1, top-5 and loss, as CSV or JSON with
 the last one padded, runs at one bucket shape (``serve.batch_bucket`` /
 ``pad_rows``); padded rows are masked out of the means. It runs on
 ``cuda`` unless ``--device cpu`` is given, and raises with no card. On the
-card each block's attention is the flash-attention kernel.
+card a ViT's attention is the flash-attention kernel, and TF32 is off
+(``_device.use_full_fp32``): fp32 convolutions and matmuls compute in fp32.
 
 ``--quantize``, ``--test-pool``, ``--real-labels``, ``--fsdp``, ``--tp``,
 ``--block-scan`` and ``--pretrained`` raise ``NotImplementedError`` naming
@@ -131,7 +132,7 @@ def validate(args, predictions=None):
     """Evaluate ``args``; returns the results row. ``predictions``, a list,
     receives each image's top-5 class indices (best first) in dataset
     order."""
-    from ._device import resolve_device
+    from ._device import resolve_device, use_full_fp32
     from .data import resolve_data_config
     from .serve import batch_bucket, pad_rows
     from .task import Normalize
@@ -140,6 +141,7 @@ def validate(args, predictions=None):
 
     check_unported(args)
     device = resolve_device(args.device)
+    use_full_fp32(device)
     model = build_model(args, device)
     data_config = resolve_data_config(vars(args), model=model)
     param_count = sum(p.numel() for p in model.parameters())
