@@ -14,10 +14,14 @@ InferenceEngine, trains ViT-B/16 through the port's ClassificationTask
 second call on, the counterpart of JAX's jitted step) on one fixed batch,
 with its gradients checked against the CPU in fp32 and a profiler breakdown
 of the train step, holds the replayed train step against its eager body bit
-for bit (phase ``train_graph``: AdamW, accumulation 2 and SGD over 20 steps
-with lr and EMA decay changing every step and a skipped non-finite step;
-eager against replayed step ms and idle share; the eval graph against the
-eager forward), and trains it again from a folder of seeded PNGs through the
+for bit (phase ``train_graph``: AdamW, accumulation 2, SGD, Muon and
+NAdamW under lookahead, caution and layer decay over 20 steps with lr and
+EMA decay changing every step and a skipped non-finite step; eager against
+replayed step ms and idle share; the eval graph against the eager forward),
+trains it with Muon (phase ``muon_train``: the Newton-Schulz step in fp32
+inside the captured step, its optimizer step and iterations timed alone)
+and holds one Muon update on the card against the CPU (``muon_vs_cpu``),
+and trains it again from a folder of seeded PNGs through the
 port's input path (threaded loader, CUDA-stream prefetcher, mixup, cutmix
 and erasing sampled on the host, the augment program's CUDA graph with the
 augment-epilogue kernel). Phase ``recipe_train`` trains it with ViT-B/16's
@@ -773,7 +777,7 @@ def phase_breakdown(engine):
 
 
 def _train_task(seed: int, device, dtype, drop_path_rate: float, opt: str = 'adamw',
-                model_name: str = 'vit_base_patch16_224', **task_kw):
+                model_name: str = 'vit_base_patch16_224', opt_kw=None, **task_kw):
     import timm_tpu_torch
     from timm_tpu_torch.loss import LabelSmoothingCrossEntropy
     model = timm_tpu_torch.create_model(model_name, dtype=dtype, seed=seed,
@@ -781,7 +785,8 @@ def _train_task(seed: int, device, dtype, drop_path_rate: float, opt: str = 'ada
     if model_name.startswith('convnext'):
         _lift_from_init(model)
     opt = timm_tpu_torch.create_optimizer_v2(model, opt=opt, lr=TRAIN_LR, weight_decay=0.05,
-                                             **({'momentum': 0.9} if opt == 'sgd' else {}))
+                                             **({'momentum': 0.9} if opt == 'sgd' else {}),
+                                             **(opt_kw or {}))
     return timm_tpu_torch.ClassificationTask(
         model, optimizer=opt, train_loss_fn=LabelSmoothingCrossEntropy(0.1), seed=seed, **task_kw)
 
@@ -1493,6 +1498,12 @@ DRIVER_FLAGS = [
     '--model-ema', '--model-ema-decay', '0.9998', '--checkpoint-hist', '2', '--seed', '0']
 DRIVER_SIGTERM_AT = 12
 DRIVER_VALIDATION_PER_CLASS = 64   # 192 validation images
+# phase drivers' Muon arm: the same flags with these after them, one epoch;
+# run M uninterrupted, run N stopped by SIGTERM after this update and resumed
+MUON_DRIVER_FLAGS = ['--epochs', '1', '--opt', 'muon', '--momentum', '0.95',
+                     '--sched', 'step', '--decay-epochs', '1', '--warmup-epochs', '0',
+                     '--layer-decay', '0.75', '--opt-caution', '--bce-loss']
+MUON_DRIVER_SIGTERM_AT = 4
 DRIVER_EVAL_REL_TOL = 1e-4         # validate's loss vs the train run's EMA evaluation
 
 
@@ -1532,6 +1543,9 @@ def phase_drivers():
     deterministic, within the difference of A and a second A); validate on
     A's EMA weights held to A's final EMA evaluation; inference's top-1
     held to validate's; one `python -m timm_tpu_torch.validate` subprocess.
+    The Muon arm (MUON_DRIVER_FLAGS: Muon, the step schedule, layer decay,
+    caution, BCE): run M, run N stopped by SIGTERM and resumed with
+    --resume auto, N's last.npz held to M's bit for bit.
     The wrappers' launch counts are read around each run (they move at a
     graph's warm-up and capture only); run C also runs under the profiler,
     which counts the kernels it ran, replays included."""
@@ -1763,6 +1777,40 @@ def phase_drivers():
         row['validate_subprocess'] = {'loss': sub['loss'], 'top1': sub['top1']}
         check(sub['top1'] == val['top1'] and abs(sub['loss'] - val['loss']) <= 1e-6 * abs(val['loss']),
               f'drivers: the subprocess validate gave {sub}, in-process {val}')
+
+        # the Muon arm
+        def muon_argv(experiment, *extra):
+            return train_argv(experiment, *MUON_DRIVER_FLAGS, *extra)
+        muon = row['muon'] = {'flags': ' '.join(MUON_DRIVER_FLAGS),
+                              'sigterm_at': MUON_DRIVER_SIGTERM_AT, 'updates': {}}
+        for name, argv in (('m', muon_argv('m')),
+                           ('n', muon_argv('n', '--fault-inject',
+                                           f'sigterm@{MUON_DRIVER_SIGTERM_AT}')),
+                           ('n_resumed', muon_argv('n', '--resume', 'auto'))):
+            rc, wall, launches, starts = run(train.main, argv)
+            row['wall_s'][f'muon_{name}'], row['launches'][f'muon_{name}'] = wall, launches
+            muon['updates'][name] = len(starts)
+            check(rc == 0, f'drivers: Muon run {name} exited {rc}')
+            check(launches['fused_adamw'] == 0, f'drivers: Muon run {name} launched {launches}')
+        check(muon['updates'] == {'m': per_epoch, 'n': MUON_DRIVER_SIGTERM_AT + 1,
+                                  'n_resumed': per_epoch - MUON_DRIVER_SIGTERM_AT - 1},
+              f'drivers: Muon runs took {muon["updates"]} updates')
+        check(row['launches']['muon_m']['flash_attention'] == depth * (2 + 2 * 2),
+              f'drivers: Muon run M wrapper launches {row["launches"]["muon_m"]}')
+        with open(os.path.join(out, 'm', 'summary.csv')) as f:
+            m_rows = list(csv.DictReader(f))
+        muon['train_loss'] = float(m_rows[-1]['train_loss'])
+        muon['eval_top1_ema'] = float(m_rows[-1]['eval_top1_ema'])
+        check(np.isfinite(muon['train_loss']), f'drivers: Muon run M loss {muon["train_loss"]}')
+        ckpt_m = _checkpoint_groups(os.path.join(out, 'm', 'last.npz'))
+        check(any(k.startswith('optimizer.nu.') for k in ckpt_m['optimizer'])
+              and int(ckpt_m['optimizer']['optimizer.count']) == per_epoch,
+              'drivers: Muon run M saved no Muon state of its updates')
+        n_vs_m = _max_diff(_checkpoint_groups(os.path.join(out, 'n', 'last.npz')), ckpt_m)
+        muon['resumed_vs_uninterrupted'] = {g: {'tensors_differ': n, 'max_abs_diff': d}
+                                            for g, (n, d) in n_vs_m.items()}
+        check(all(n == 0 for n, _ in n_vs_m.values()),
+              f'drivers: resumed Muon run N differs from run M: {muon["resumed_vs_uninterrupted"]}')
     finally:
         TrainingTask.train_step = train_step
         train.validate = train_validate
@@ -1907,7 +1955,8 @@ def _train_state(task):
 
 def _graph_vs_eager(opt_name: str, accum: int, batches, nan_batch, timed: bool,
                     model_name: str = 'vit_base_patch16_224', steps: int = TRAIN_STEPS,
-                    nan_step: int = TRAIN_GRAPH_NAN_STEP, drop_path_rate: float = 0.1):
+                    nan_step: int = TRAIN_GRAPH_NAN_STEP, drop_path_rate: float = 0.1,
+                    opt_kw=None):
     """One task (ViT-B/16 unless ``model_name``; bf16, drop_path 0.1, clip
     1.0, EMA 0.9998 with warmup, cosine lr with 3 warmup steps, the guard
     on) from one state: ``steps`` (20) eager steps of the step body (what
@@ -1921,7 +1970,7 @@ def _graph_vs_eager(opt_name: str, accum: int, batches, nan_batch, timed: bool,
     import timm_tpu_torch
     from timm_tpu_torch.layers.drop import get_drop_generator
     task = _train_task(0, 'cuda', torch.bfloat16, drop_path_rate, opt=opt_name, clip_grad=1.0,
-                       grad_accum_steps=accum, model_name=model_name)
+                       grad_accum_steps=accum, model_name=model_name, opt_kw=opt_kw)
     task.setup_ema(decay=0.9998, warmup=True)
     gen = get_drop_generator(task.model)
     sched, _ = timm_tpu_torch.create_scheduler_v2(
@@ -1971,7 +2020,7 @@ def _graph_vs_eager(opt_name: str, accum: int, batches, nan_batch, timed: bool,
         differ.append('drop_generator')
     metric_steps = [i + 1 for i, (a, b) in enumerate(zip(e['metrics'], g['metrics']))
                     if a.keys() != b.keys() or not all(_bit_equal(a[k], b[k]) for k in a)]
-    row = {'optimizer': opt_name, 'grad_accum_steps': accum,
+    row = {'optimizer': opt_name, 'optimizer_kwargs': opt_kw or {}, 'grad_accum_steps': accum,
            'losses': [float(m['loss']) for m in g['metrics']],
            'grad_norms': [float(m['grad_norm']) for m in g['metrics']],
            'skipped_steps': [i + 1 for i, m in enumerate(g['metrics']) if bool(m['nonfinite'])],
@@ -2017,9 +2066,16 @@ def _eval_graph_vs_eager(task):
     return out
 
 
+# phase train_graph's arms: (optimizer, gradient accumulation, its arguments)
+TRAIN_GRAPH_ARMS = (('adamw', 1, {}), ('adamw', 2, {}), ('sgd', 1, {}),
+                    ('muon', 1, {'momentum': 0.95}),
+                    ('lookahead_nadamw', 1, {'caution': True, 'layer_decay': 0.75}))
+
+
 def phase_train_graph():
     """The compiled train step against its eager body, bit for bit: AdamW,
-    AdamW with gradient accumulation 2, and SGD, each from one state over 20
+    AdamW with gradient accumulation 2, SGD, Muon, and NAdamW under
+    lookahead, caution and layer decay 0.75, each from one state over 20
     steps in which lr and the EMA decay change every step and step 7 is
     skipped by the guard; eager and replayed step ms, idle shares and the
     graph's memory (AdamW); the eval graph against the eager forward."""
@@ -2028,9 +2084,9 @@ def phase_train_graph():
     nan_batch = dict(batches[0], input=batches[0]['input'].clone())
     nan_batch['input'][3, 100, 100, 1] = float('nan')
     rows = []
-    for opt_name, accum in (('adamw', 1), ('adamw', 2), ('sgd', 1)):
+    for opt_name, accum, opt_kw in TRAIN_GRAPH_ARMS:
         timed = (opt_name, accum) == ('adamw', 1)
-        row, task = _graph_vs_eager(opt_name, accum, batches, nan_batch, timed)
+        row, task = _graph_vs_eager(opt_name, accum, batches, nan_batch, timed, opt_kw=opt_kw)
         if timed:
             row['eval_graph_equals_eager'] = _eval_graph_vs_eager(task)
             row['eval_graph_captures'] = task.eval_graphs.captures
@@ -2057,6 +2113,176 @@ def phase_train_graph():
           and timed['replayed_kernels_per_step']['fused_adamw'] == 1,
           f'train_graph: a replayed step ran {timed["replayed_kernels_per_step"]}')
     return timed
+
+
+# ---- Muon: phases muon_train and muon_vs_cpu ------------------------------------------------
+MUON_MOMENTUM = 0.95
+# one Muon update of ViT-B/16 on the card against the CPU, both fp32 from the
+# same weights and gradient: the largest relative L2 of a leaf's update. The
+# same update with TF32 products on the card is the control, which must lie
+# above the limit: a limit it passed would pass the fault it is set to catch.
+# On the H100 fp32 read 4.83e-5 and TF32 2.69e-3; the limit sits between,
+# about 8x from fp32 and 7x from TF32
+MUON_VS_CPU_TOL = 4e-4
+
+
+def _ns_flops(opt) -> int:
+    """fp32 operations of one Muon step's Newton-Schulz iterations: per
+    matrix (m <= n) and step X Xᵀ (2 m² n), A A (2 m³) and B X (2 m² n)."""
+    from timm_tpu_torch.optim import NS_STEPS
+    total = 0
+    for leaves, _ in opt._groups:
+        m, n = sorted(opt._slots[leaves[0][0]][1])
+        total += len(leaves) * NS_STEPS * (4 * m * m * n + 2 * m ** 3)
+    return total
+
+
+def phase_muon_train():
+    """ViT-B/16 trained with Muon through ClassificationTask, as phase
+    ``train`` trains it with AdamW (bf16 compute, fp32 parameters, drop path
+    0.1, label smoothing 0.1, wd 0.05 under the mask, clip 1.0, EMA, cosine
+    with 3 warmup steps, 20 steps on one fixed batch, a graph from step 2),
+    momentum 0.95: losses, replayed step ms, idle share and the graph's
+    memory; the profiler's kernels of 3 replayed steps (12 flash, no
+    fused_adamw); the optimizer step alone as a CUDA graph of ``opt.step``,
+    and its Newton-Schulz iterations alone, against their fp32 bound."""
+    import torch
+    import timm_tpu_torch
+    from timm_tpu_torch.kernels import flash_attention, fused_adamw
+    from timm_tpu_torch.kernels.harness import graph_ms
+    from timm_tpu_torch.kernels.registry import PEAK_OPS_PER_S
+    from timm_tpu_torch.optim import orthogonalize_via_newton_schulz
+    task = _train_task(0, 'cuda', torch.bfloat16, 0.1, opt='muon',
+                       opt_kw={'momentum': MUON_MOMENTUM}, clip_grad=1.0)
+    task.setup_ema(decay=0.9998)
+    opt = task.optimizer
+    sched, _ = timm_tpu_torch.create_scheduler_v2(
+        TRAIN_LR, 'cosine', num_epochs=TRAIN_STEPS, warmup_epochs=3, warmup_lr=1e-6)
+    batch = _train_batch(TRAIN_BATCH, 4, 'cuda')
+    depth = len(task.model.blocks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    flash_attention.launches = 0
+    fused_adamw.launches = 0
+    metrics, flash_steps, lrs = [], [], []
+    for step in range(TRAIN_STEPS):
+        if step == TRAIN_WARMUP_STEPS:
+            start.record()
+        f0 = flash_attention.launches
+        lrs.append(sched.step(step)[0])
+        metrics.append(task.train_step(batch, lr=lrs[-1], step=step + 1))
+        flash_steps.append(flash_attention.launches - f0)
+    end.record()
+    torch.cuda.synchronize()
+    launches = {'flash_attention': flash_attention.launches, 'fused_adamw': fused_adamw.launches}
+    step_ms = start.elapsed_time(end) / (TRAIN_STEPS - TRAIN_WARMUP_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    reps = 3
+    kernels, counts, prof_wall_ms = _profile_kernels(
+        lambda: task.train_step(batch, lr=1e-5, step=TRAIN_STEPS + 1), reps)
+    replayed = _per_step(counts, reps)
+    busy = sum(kernels.values())
+    losses = [float(m['loss']) for m in metrics]
+    last = metrics[-1]
+    # the update alone: a graph of opt.step on the gradient the last step left
+    scale = torch.ones((), device='cuda')
+    ok = torch.ones((), dtype=torch.bool, device='cuda')
+    opt_step_ms = graph_ms(lambda: opt.step(grad_scale=scale, ok=ok), per_graph=2, replays=5)
+    # its Newton-Schulz iterations alone, on seeded matrices of each group's shape
+    g = torch.Generator(device='cuda').manual_seed(3)
+    stacks = [torch.randn(len(leaves), *sorted(opt._slots[leaves[0][0]][1]), generator=g,
+                          device='cuda') for leaves, _ in opt._groups]
+    ns_ms = graph_ms(lambda: [orthogonalize_via_newton_schulz(x) for x in stacks],
+                     per_graph=2, replays=5)
+    ns_flops = _ns_flops(opt)
+    ns_bound_ms = ns_flops / PEAK_OPS_PER_S['float32'] * 1e3
+    emit({'phase': 'muon_train', 'model': 'vit_base_patch16_224', 'dtype': 'bfloat16',
+          'optimizer': 'muon', 'momentum': MUON_MOMENTUM, 'batch': TRAIN_BATCH,
+          'steps': TRAIN_STEPS, 'drop_path_rate': 0.1,
+          'muon_leaves': len(opt.muon_leaves), 'adam_leaves': len(opt.adam_leaves),
+          'muon_parameters': sum(opt._slots[n][1].numel() for n in opt.muon_leaves),
+          'ns_groups': [[len(leaves), *sorted(opt._slots[leaves[0][0]][1])]
+                        for leaves, _ in opt._groups],
+          'losses': losses, 'grad_norms': [float(m['grad_norm']) for m in metrics], 'lrs': lrs,
+          'step_ms': step_ms, 'img_per_s': TRAIN_BATCH / step_ms * 1e3,
+          'peak_memory_gb': peak_gb, 'graph_pool_bytes': task.train_graphs.pool_bytes(),
+          'captures': task.train_graphs.captures, 'replays': task.train_graphs.replays,
+          'nonfinite_total': int(last['nonfinite_total']),
+          'wrapper_flash_launches_per_step': flash_steps, 'launches': launches,
+          'profiled_replays': reps,
+          'replayed_kernels_per_step': replayed if kernels else 'not measured',
+          'replay_wall_ms_per_step': prof_wall_ms,
+          'replay_device_ms_per_step': busy if kernels else 'not measured',
+          'replay_idle_share': 1.0 - busy / prof_wall_ms if kernels else 'not measured',
+          'optimizer_step_ms': opt_step_ms, 'newton_schulz_ms': ns_ms,
+          'newton_schulz_flops': ns_flops, 'newton_schulz_bound_ms': ns_bound_ms,
+          'newton_schulz_bound_share': ns_bound_ms / ns_ms})
+    check(all(np.isfinite(losses)), f'muon_train: non-finite loss in {losses}')
+    check(losses[-1] < losses[0], f'muon_train: last loss {losses[-1]} not below first {losses[0]}')
+    check(flash_steps == [depth, depth] + [0] * (TRAIN_STEPS - 2),
+          f'muon_train: flash wrapper launches per step {flash_steps}')
+    check(launches['fused_adamw'] == 0, f'muon_train: {launches["fused_adamw"]} fused_adamw launches')
+    check(task.train_graphs.captures == 1, 'muon_train: the step was not captured once')
+    check(bool(kernels), 'muon_train: the profiler saw no kernel of the replayed steps')
+    check(replayed['flash_attention'] == depth and replayed['fused_adamw'] == 0,
+          f'muon_train: a replayed step ran {replayed}')
+    check(int(last['nonfinite_total']) == 0, 'muon_train: the guard skipped a step')
+    return launches
+
+
+def phase_muon_vs_cpu():
+    """One Muon update of ViT-B/16 in fp32 on the card against the CPU: the
+    same seeded weights and flat gradient, lr 0.02, wd 0.05 under the mask;
+    each leaf's update p_new - p within MUON_VS_CPU_TOL relative L2. The
+    control runs the card's update once more with TF32 matrix products and
+    must exceed the limit."""
+    import torch
+    import timm_tpu_torch
+    grad = None
+    updates = {}
+    for run, device in (('cuda', 'cuda'), ('cuda_tf32', 'cuda'), ('cpu', 'cpu')):
+        model = timm_tpu_torch.create_model('vit_base_patch16_224', seed=0, device=device)
+        opt = timm_tpu_torch.create_optimizer_v2(model, opt='muon', lr=0.02, weight_decay=0.05,
+                                                 momentum=MUON_MOMENTUM)
+        if grad is None:
+            grad = torch.from_numpy(np.random.default_rng(11).standard_normal(
+                opt.flat_grad.numel(), dtype=np.float32) * 1e-3)
+        before = opt.flat_param.detach().cpu().clone()
+        opt.flat_grad.copy_(grad.to(device))
+        torch.backends.cuda.matmul.allow_tf32 = run == 'cuda_tf32'
+        try:
+            t0 = time.perf_counter()
+            opt.step()
+            if device == 'cuda':
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        updates[run] = (opt.host_views(opt.flat_param.detach().cpu() - before), seconds)
+        del model, opt
+    cpu, cpu_s = updates['cpu']
+
+    def rel_l2(run):
+        upd = updates[run][0]
+        return {n: float(np.linalg.norm(upd[n] - cpu[n]) / max(np.linalg.norm(cpu[n]), 1e-30))
+                for n in cpu}
+    rel, rel_tf32 = rel_l2('cuda'), rel_l2('cuda_tf32')
+    worst, worst_tf32 = max(rel, key=rel.get), max(rel_tf32, key=rel_tf32.get)
+    emit({'phase': 'muon_vs_cpu', 'model': 'vit_base_patch16_224', 'dtype': 'float32',
+          'leaves': len(rel), 'max_rel_l2': rel[worst], 'worst_leaf': worst,
+          'median_rel_l2': float(np.median(list(rel.values()))), 'tol': MUON_VS_CPU_TOL,
+          'tf32_control_max_rel_l2': rel_tf32[worst_tf32], 'tf32_control_worst_leaf': worst_tf32,
+          'tf32_control_median_rel_l2': float(np.median(list(rel_tf32.values()))),
+          'card_step_seconds_eager_first': updates['cuda'][1], 'cpu_step_seconds': cpu_s})
+    check(all(np.isfinite(list(rel.values()))), 'muon_vs_cpu: a non-finite update')
+    check(rel[worst] <= MUON_VS_CPU_TOL,
+          f'muon_vs_cpu: {worst} update rel L2 {rel[worst]} > {MUON_VS_CPU_TOL}')
+    check(rel_tf32[worst_tf32] > MUON_VS_CPU_TOL,
+          f'muon_vs_cpu: the TF32 control ({rel_tf32[worst_tf32]}) passes the limit '
+          f'{MUON_VS_CPU_TOL}')
+    torch.cuda.empty_cache()
 
 
 # ---- ConvNeXt-B: phases convnext_depthwise, convnext_model, convnext_serve,
@@ -2551,6 +2777,8 @@ def main() -> int:
         del task, batch
         torch.cuda.empty_cache()
         phase_train_graph()
+        muon_launches = phase_muon_train()
+        phase_muon_vs_cpu()
         # ConvNeXt-B's profiled phases run before phase drivers' profiled
         # run C, after which the profiler misses kernels
         phase_convnext_depthwise()
@@ -2569,6 +2797,7 @@ def main() -> int:
     # program: the augment-epilogue kernel is not on that path (0 launches)
     launches = {'flash_attention': {'serve': serve_launches,
                                     'train': train_launches['flash_attention'],
+                                    'muon_train': muon_launches['flash_attention'],
                                     'input_train': input_launches['flash_attention'],
                                     'recipe_train': recipe_launches['flash_attention'],
                                     'drivers': driver_launches['flash_attention']},

@@ -325,7 +325,7 @@ def test_drivers_raise_for_unported_flags_and_without_a_card():
 
     from timm_tpu_torch import inference, train, validate
     for flag, item in (('--fsdp=2', 'A.5.11'), ('--split-bn', 'A.5.6'),
-                       ('--lr-cycle-limit=2', 'A.5.5'), ('--distill=teacher=x', 'A.5.10')):
+                       ('--opt=lion', 'A.5.5'), ('--distill=teacher=x', 'A.5.10')):
         with pytest.raises(NotImplementedError, match=item):
             train.main(COMMON + [flag])
     with pytest.raises(ValueError, match='aug-splits'):

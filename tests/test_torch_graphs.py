@@ -183,7 +183,9 @@ def _eager_steps(task, batches, lrs):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('opt,accum', [('adamw', 1), ('adamw', 2), ('sgd', 1)])
+@pytest.mark.parametrize('opt,accum', [('adamw', 1), ('adamw', 2), ('sgd', 1), ('muon', 1),
+                                       ('nadamw', 1), ('lamb', 1), ('madgrad', 1),
+                                       ('laprop', 1), ('mars', 1), ('lookahead_adamw', 1)])
 def test_train_replays_equal_eager_steps_on_card(opt, accum):
     """From one state, 6 steps through the graphs (a warm-up, a capture,
     replays) against 6 eager steps of the body: every metric and every

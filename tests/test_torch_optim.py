@@ -300,12 +300,13 @@ def test_cosine_warmup_schedule_matches_jax():
     upd, _ = create_scheduler_v2(**kw, step_on_epochs=False, updates_per_epoch=3)
     jupd, _ = jsched(**kw, step_on_epochs=False, updates_per_epoch=3)
     assert [upd.step_update(t)[0] for t in range(30)] == [jupd.step_update(t)[0] for t in range(30)]
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        create_scheduler_v2(sched='step')
-    for opt in (dict(cooldown_epochs=2), dict(warmup_prefix=True), dict(noise=0.5),
-                dict(cycle_limit=2), dict(cycle_mul=2.0), dict(k_decay=2.0)):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            create_scheduler_v2(**kw, **opt)
+    # the schedules and options the port once refused now give JAX's values
+    for sched_kw in (dict(sched='step'), dict(cooldown_epochs=2), dict(warmup_prefix=True),
+                     dict(noise=0.5), dict(cycle_limit=2), dict(cycle_mul=2.0), dict(k_decay=2.0)):
+        ours, n_ours = create_scheduler_v2(**dict(kw, **sched_kw))
+        ref, n_ref2 = jsched(**dict(kw, **sched_kw))
+        assert n_ours == n_ref2
+        assert [ours.step(t)[0] for t in range(30)] == [ref.step(t)[0] for t in range(30)]
     assert create_scheduler_v2(**kw, cycle_limit=1, noise=None)[1] == n_ref  # defaults pass
 
 
@@ -346,9 +347,10 @@ def test_sgd_matches_optax_chain(jx):
 
 def test_factory_raises_for_what_is_not_ported():
     tm = timm_tpu_torch.create_model('test_vit', num_classes=5, device='cpu')
-    for kw in (dict(opt='lamb'), dict(opt='adam'), dict(opt='lookahead_adamw'),
-               dict(opt='adamw', layer_decay=0.75), dict(opt='adamw', caution=True)):
-        with pytest.raises(NotImplementedError, match='ROADMAP §A.5'):
+    for kw in (dict(opt='adafactor'), dict(opt='adam'), dict(opt='lion'),
+               dict(opt='lookahead_lion'), dict(opt='lion', layer_decay=0.75),
+               dict(opt='lion', caution=True)):
+        with pytest.raises(NotImplementedError, match='ROADMAP A.5.5'):
             create_optimizer_v2(tm, **kw)
     opt = create_optimizer_v2(tm, opt='adamw', weight_decay=0.05, mu_dtype='bfloat16')
     assert opt.m.dtype == torch.bfloat16 and opt.v.dtype == torch.float32

@@ -18,14 +18,21 @@ Task checkpoints (``convert_jax_checkpoint``): the single flat dict of
 
   optimizer.count                           -> optimizer.count
   optimizer.hyperparams.learning_rate       -> optimizer.learning_rate
-  optimizer.inner_state.<i>.count           -> optimizer.count (must agree)
-  optimizer.inner_state.<i...>.mu.<path>    -> optimizer.mu.<port path>
-  optimizer.inner_state.<i...>.nu.<path>    -> optimizer.nu.<port path>
-  optimizer.inner_state.<i...>.trace.<path> -> optimizer.trace.<port path>
+  optimizer.inner_state.<i...>.count|step   -> optimizer.count (must agree)
+  optimizer.inner_state.<i...>.<slot>.<path> -> optimizer.<slot>.<port path>
+  optimizer.inner_state.<i...>.exp_avg_lr_1|2 -> optimizer.exp_avg_lr_1|2
 
-with the moments transposed as their parameters are. ``epoch``, ``metric``
-and ``_resume.*`` carry over. Any other key raises and names itself: no key
-is skipped.
+where <i...> is chain indices and Muon's partitions
+(``inner_states.muon|adam.inner_state``), and <slot> is one of mu, nu,
+trace (AdamW, NAdamW, LAMB, Muon, SGD), grad_sum_sq, s, x0 (MADGRAD),
+exp_avg, exp_avg_sq (LaProp, MARS) and last_grad (MARS), with the moments
+transposed as their parameters are. Muon's ``ns_coeffs`` must be optax's
+constants. Lookahead's state ``(inner, slow, count)`` maps its inner state
+as above, ``inner_state.1.<path>`` to ``optimizer.slow.<port path>`` and its
+count must agree; with layer decay the whole state sits under
+``optimizer.0.`` (the scale transform keeps none). ``epoch``, ``metric`` and
+``_resume.*`` carry over. Any other key raises and names itself: no key is
+skipped.
 """
 from __future__ import annotations
 
@@ -36,11 +43,16 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..optim._optimizers import NS_COEFFS
+
 __all__ = ['convert_jax_checkpoint', 'convert_jax_state_dict', 'is_jax_checkpoint',
            'load_jax_state_dict']
 
-_SLOT_RE = re.compile(r'^optimizer\.inner_state\.(?:\d+\.)*(mu|nu|trace)\.(.+)$')
-_INNER_COUNT_RE = re.compile(r'^optimizer\.inner_state\.(?:\d+\.)*count$')
+# an optax inner state key: chain indices and Muon's partitions, then a field
+_INNER_RE = re.compile(r'^(?:\d+\.|inner_states\.(?:muon|adam)\.inner_state\.)*(.+)$')
+_SLOT_RE = re.compile(
+    r'^(mu|nu|trace|grad_sum_sq|s|x0|exp_avg|exp_avg_sq|last_grad)\.(.+)$')
+_SCALAR_SLOTS = ('exp_avg_lr_1', 'exp_avg_lr_2')
 _WEIGHT_PREFIXES = ('state_dict.', 'state_dict_ema.', 'model_state.')
 
 
@@ -99,23 +111,48 @@ def convert_jax_checkpoint(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarr
             raise ValueError(f'two JAX entries map to the port key {key}')
         out[key] = value
 
+    layer_decay = any(k.startswith('optimizer.0.') for k in flat)
+    lookahead = any(_optimizer_key(k, layer_decay) == 'optimizer.inner_state.2' for k in flat)
+
+    def put_inner(key, rest, value):
+        """An optax inner state entry, ``rest`` after its ``inner_state.``."""
+        field = _INNER_RE.match(rest).group(1)
+        if field in ('count', 'step'):
+            inner_counts.append((key, int(np.asarray(value))))
+        elif field == 'ns_coeffs':
+            if not np.array_equal(np.asarray(value, np.float32), np.float32(NS_COEFFS)):
+                raise ValueError(f'{key} = {np.asarray(value)}: the port runs Muon with '
+                                 f'optax\'s coefficients {NS_COEFFS}')
+        elif field in _SCALAR_SLOTS:
+            put(f'optimizer.{field}', np.asarray(value, np.float32))
+        elif _SLOT_RE.match(field):
+            slot, path = _SLOT_RE.match(field).groups()
+            path, value = _convert_leaf(path, value)
+            put(f'optimizer.{slot}.{path}', value)
+        else:
+            raise ValueError(f'{key}: no rule maps this JAX checkpoint entry into the port')
+
     for key, value in flat.items():
+        okey = _optimizer_key(key, layer_decay)
         if key in ('epoch', 'metric') or key.startswith('_resume.'):
             put(key, np.asarray(value))
         elif key.startswith(_WEIGHT_PREFIXES):
             prefix, _, path = key.partition('.')
             path, value = _convert_leaf(path, value)
             put(f'{prefix}.{path}', value)
-        elif key == 'optimizer.count':
+        elif okey == 'optimizer.count':
             put('optimizer.count', np.asarray(value, np.int32))
-        elif key == 'optimizer.hyperparams.learning_rate':
+        elif okey == 'optimizer.hyperparams.learning_rate':
             put('optimizer.learning_rate', np.asarray(value, np.float32))
-        elif _INNER_COUNT_RE.match(key):
+        elif lookahead and okey == 'optimizer.inner_state.2':
             inner_counts.append((key, int(np.asarray(value))))
-        elif _SLOT_RE.match(key):
-            slot, path = _SLOT_RE.match(key).groups()
-            path, value = _convert_leaf(path, value)
-            put(f'optimizer.{slot}.{path}', value)
+        elif lookahead and okey.startswith('optimizer.inner_state.1.'):
+            path, value = _convert_leaf(okey[len('optimizer.inner_state.1.'):], value)
+            put(f'optimizer.slow.{path}', value)
+        elif lookahead and okey.startswith('optimizer.inner_state.0.'):
+            put_inner(key, okey[len('optimizer.inner_state.0.'):], value)
+        elif not lookahead and okey.startswith('optimizer.inner_state.'):
+            put_inner(key, okey[len('optimizer.inner_state.'):], value)
         else:
             raise ValueError(f'{key}: no rule maps this JAX checkpoint entry into the port')
     for key, count in inner_counts:
@@ -125,6 +162,14 @@ def convert_jax_checkpoint(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarr
             raise ValueError(f'{key} = {count} disagrees with optimizer.count = '
                              f'{int(out["optimizer.count"])}')
     return out
+
+
+def _optimizer_key(key: str, layer_decay: bool) -> str:
+    """An ``optimizer.`` key with layer decay's chain index taken off (the
+    scale transform at index 1 keeps no state)."""
+    if layer_decay and key.startswith('optimizer.0.'):
+        return 'optimizer.' + key[len('optimizer.0.'):]
+    return key
 
 
 def load_jax_state_dict(model: nn.Module, flat: Mapping[str, np.ndarray]) -> nn.Module:

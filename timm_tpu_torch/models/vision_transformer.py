@@ -2,9 +2,10 @@
 
 Ported: the pre-norm ``Block``, ``VisionTransformer`` with the
 forward_features / forward_head / forward contract, get_classifier /
-reset_classifier, no_weight_decay, the token pad ``pad_tokens_to`` (which threads a
-key-padding mask into every attention), and the entrypoints test_vit,
-test_vit2, vit_tiny_patch16_224 and vit_base_patch16_224.
+reset_classifier, no_weight_decay, group_matcher (layer decay), the token
+pad ``pad_tokens_to`` (which threads a key-padding mask into every
+attention), and the entrypoints test_vit, test_vit2, vit_tiny_patch16_224
+and vit_base_patch16_224.
 
 Input is NHWC, as in the JAX package. With ``dtype=torch.bfloat16`` the
 casts follow the JAX model: the patch embedding, blocks and head compute in
@@ -150,6 +151,12 @@ class VisionTransformer(nn.Module):
     # ---- contract methods -------------------------------------------------
     def no_weight_decay(self) -> set:
         return {'pos_embed', 'cls_token', 'reg_token', 'dist_token'}
+
+    def group_matcher(self, coarse: bool = False) -> Dict:
+        return dict(
+            stem=r'^cls_token|pos_embed|patch_embed|reg_token',
+            blocks=[(r'^blocks\.(\d+)', None), (r'^norm', (99999,))],
+        )
 
     def get_classifier(self) -> Optional[nn.Module]:
         return self.head

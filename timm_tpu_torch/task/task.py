@@ -5,9 +5,10 @@ guard, and runs the JAX package's train step in the same order: gradients
 (averaged over ``grad_accum_steps`` microbatches), the raw global
 ``grad_norm``, clipping, the optimizer update, the guard, the EMA. Two of
 those happen inside the optimizer's update, because the update is in place:
-the norm clip factor scales the gradients inside the AdamW kernel, and the
-guard's device flag leaves parameters, moments, step count and EMA
-untouched on a bad step, where JAX selects the old values afterwards. The
+the norm clip factor scales the gradients inside the update (the AdamW
+kernel or the plain optimizers), and the guard's device flag leaves
+parameters, optimizer state, step count and EMA untouched on a bad step,
+where JAX selects the old values afterwards. The
 EMA itself is a buffer of the optimizer, updated in the same pass.
 
 Compiled steps. JAX jits its train and eval steps, always; the port's
@@ -247,8 +248,7 @@ class TrainingTask:
         if self.ema_params is not None:
             keys += [f'state_dict_ema.{n}' for n in self.ema_params]
         if opt is not None:
-            keys += ['optimizer.count', 'optimizer.learning_rate']
-            keys += [f'optimizer.{slot}.{n}' for slot in opt.slots() for n, _ in opt._params]
+            keys += [f'optimizer.{k}' for k in opt.state_keys()]
         if get_drop_generator(self.model) is not None:
             keys.append(DROP_RNG_KEY)
         return keys

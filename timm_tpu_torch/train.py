@@ -10,8 +10,16 @@ and matmuls compute in fp32, as the JAX package's do; ``--amp`` is bf16.
 One process, one device. Each update is ``ClassificationTask.train_step``:
 for a ViT the flash-attention kernel in every block's forward (a ConvNeXt's
 convolutions are cuDNN's, as XLA computes them in JAX), and the fused AdamW +
-EMA kernel for the update (``--opt adamw``; ``--fused-update`` is accepted
-and changes nothing, since the port's AdamW step is always that kernel).
+EMA kernel for the update (``--opt adamw``; ``--fused-update`` requires
+that plain AdamW, as the JAX script's does, and otherwise changes nothing,
+since the port's plain AdamW step is always that kernel). The other
+optimizers (``--opt muon``, 'nadamw', 'lamb', 'madgrad', 'laprop', 'mars',
+``lookahead_<name>``, ``--opt-caution``, ``--layer-decay``) update the flat
+buffers in plain PyTorch inside the same captured step. Every schedule of
+the JAX script runs (``--sched cosine|tanh|step|multistep|plateau|poly``
+with cooldown, warmup prefix, noise, cycles and k-decay; plateau steps on
+the evaluation metric), and ``--bce-loss`` with ``--bce-sum`` and
+``--bce-target-thresh``.
 With ``--device-augment`` the loader ends in the augment program, one CUDA
 graph per batch shape: the augment-epilogue kernel for ``--remode const``,
 the torch program for 'rand' and 'pixel' (the default), as in the JAX
@@ -86,9 +94,10 @@ def make_parser():
     group.add_argument('--block-scan', action='store_true', default=False,
                        help='not ported (ROADMAP A.5.7)')
     group.add_argument('--fused-update', action='store_true', default=False,
-                       help="accepted for the JAX script's command line and changes nothing: "
-                            "the port's AdamW step is always one launch of the fused AdamW + "
-                            'EMA CUDA kernel (timm_tpu_torch/kernels/fused_adamw.py)')
+                       help='requires --opt adamw with no lookahead, caution or layer decay, '
+                            "as the JAX script's does; otherwise changes nothing: the port's "
+                            'plain AdamW step is always one launch of the fused AdamW + EMA '
+                            'CUDA kernel (timm_tpu_torch/kernels/fused_adamw.py)')
     group.add_argument('--distill', default='', type=str, metavar='SPEC',
                        help='not ported (ROADMAP A.5.10)')
     group.add_argument('--device-prefetch', type=int, default=0, metavar='N',
@@ -254,11 +263,6 @@ _UNPORTED = (
     ('fsdp', 'A.5.11'), ('tp', 'A.5.11'), ('distributed', 'A.5.11'), ('elastic', 'A.5.11'),
     ('nonfinite_rollback', 'A.5.11'),
     ('autotune', 'A.5.12'), ('autotune_probe_top_k', 'A.5.12'), ('log_wandb', 'A.5.12'),
-    ('layer_decay', 'A.5.5'), ('opt_caution', 'A.5.5'), ('lr_noise', 'A.5.5'),
-    ('lr_noise_pct', 'A.5.5'), ('lr_noise_std', 'A.5.5'), ('lr_cycle_mul', 'A.5.5'),
-    ('lr_cycle_decay', 'A.5.5'), ('lr_cycle_limit', 'A.5.5'), ('lr_k_decay', 'A.5.5'),
-    ('warmup_prefix', 'A.5.5'), ('cooldown_epochs', 'A.5.5'),
-    ('bce_loss', 'A.5.5'), ('bce_sum', 'A.5.5'), ('bce_target_thresh', 'A.5.5'),
     ('split_bn', 'A.5.6: split BN comes with norm_act.py, the ResNet step'),
     ('epoch_repeats', 'A.5.1: the JAX script parses it and never reads it'),
     ('worker_seeding', 'A.5.1: the JAX script parses it and never reads it'),
@@ -271,9 +275,6 @@ def check_unported(args) -> None:
     ``args`` (command line or --config) sets away from its default."""
     parser = make_parser()
     for dest, item in _UNPORTED:
-        # cycle decay only acts with more than one cycle, which is itself unported
-        if dest == 'lr_cycle_decay' or dest.startswith('lr_noise_') and args.lr_noise is None:
-            continue
         if getattr(args, dest) != parser.get_default(dest):
             flag = '--' + dest.replace('_', '-')
             raise NotImplementedError(f'{flag} is not ported yet (ROADMAP {item})')
@@ -322,12 +323,18 @@ class SyntheticLoader:
 
 
 def optimizer_kwargs(args) -> dict:
+    """The optimizer factory's arguments from the flags, as the JAX
+    package's ``optimizer_kwargs`` reads them."""
     kwargs = dict(opt=args.opt, lr=args.lr, weight_decay=args.weight_decay, momentum=args.momentum)
     if args.opt_eps is not None:
         kwargs['eps'] = args.opt_eps
     if args.opt_betas is not None:
         kwargs['betas'] = args.opt_betas
+    if args.layer_decay is not None:
+        kwargs['layer_decay'] = args.layer_decay
     kwargs.update(args.opt_kwargs or {})
+    if args.opt_caution:
+        kwargs['caution'] = True
     return kwargs
 
 
@@ -340,7 +347,9 @@ def main(argv=None) -> int:
     from ._device import resolve_device, use_full_fp32
     from .data import Mixup, resolve_data_config
     from .data.loader import DevicePrefetcher
-    from .loss import JsdCrossEntropy, LabelSmoothingCrossEntropy, SoftTargetCrossEntropy
+    from .loss import (
+        BinaryCrossEntropy, JsdCrossEntropy, LabelSmoothingCrossEntropy, SoftTargetCrossEntropy,
+    )
     from .models import convert_jax_checkpoint, create_model, is_jax_checkpoint, load_checkpoint
     from .optim import create_optimizer_v2
     from .resilience import (
@@ -348,7 +357,7 @@ def main(argv=None) -> int:
         resolve_auto_resume, restore_host_rng,
     )
     from .resilience.durable import atomic_write_bytes
-    from .scheduler import create_scheduler_v2
+    from .scheduler import create_scheduler_v2, scheduler_kwargs
     from .task import ClassificationTask, Normalize
     from .utils import CheckpointSaver, get_outdir, random_seed, setup_default_logging, update_summary
 
@@ -406,6 +415,9 @@ def main(argv=None) -> int:
         _logger.info(f'LR ({args.lr}) from base ({args.lr_base}) * {scale} batch ratio')
 
     optimizer = create_optimizer_v2(model, **optimizer_kwargs(args))
+    if args.fused_update and not getattr(optimizer, 'fused', False):
+        raise ValueError('--fused-update requires a plain adamw optimizer (no lookahead, '
+                         f'caution or layer decay); --opt {args.opt} is not one')
     norm_mean, norm_std = data_config['mean'], data_config['std']
     if args.device_augment:
         if args.grad_accum_steps != 1:
@@ -439,9 +451,14 @@ def main(argv=None) -> int:
             raise ValueError('--jsd-loss requires --aug-splits > 1')
         train_loss = JsdCrossEntropy(num_splits=num_aug_splits, smoothing=args.smoothing)
     elif args.mixup > 0 or args.cutmix > 0:
-        train_loss = SoftTargetCrossEntropy()
+        train_loss = BinaryCrossEntropy(
+            smoothing=0.0, target_threshold=args.bce_target_thresh, sum_classes=args.bce_sum,
+        ) if args.bce_loss else SoftTargetCrossEntropy()
     elif args.smoothing:
-        train_loss = LabelSmoothingCrossEntropy(smoothing=args.smoothing)
+        train_loss = BinaryCrossEntropy(
+            smoothing=args.smoothing, target_threshold=args.bce_target_thresh,
+            sum_classes=args.bce_sum,
+        ) if args.bce_loss else LabelSmoothingCrossEntropy(smoothing=args.smoothing)
     else:
         train_loss = LabelSmoothingCrossEntropy(0.0)
     task.train_loss_fn = train_loss
@@ -537,11 +554,12 @@ def main(argv=None) -> int:
 
     steps_per_epoch = len(loader_train)
     updates_per_epoch = (steps_per_epoch + args.grad_accum_steps - 1) // args.grad_accum_steps
-    # the factory raises NotImplementedError for the JAX package's other schedules
     lr_scheduler, num_epochs = create_scheduler_v2(
-        base_lr=args.lr, sched=args.sched, num_epochs=args.epochs, min_lr=args.min_lr,
-        warmup_lr=args.warmup_lr, warmup_epochs=args.warmup_epochs,
-        step_on_epochs=not args.sched_on_updates, updates_per_epoch=updates_per_epoch)
+        base_lr=args.lr,
+        **{k: v for k, v in scheduler_kwargs(args).items() if k != 'num_epochs'},
+        num_epochs=args.epochs,
+        updates_per_epoch=updates_per_epoch,
+    )
     start_epoch = 0
     if args.start_epoch is not None:
         start_epoch = args.start_epoch
@@ -654,7 +672,7 @@ def main(argv=None) -> int:
             best_metric, best_epoch = saver.save_checkpoint(
                 epoch, metric=eval_metrics.get(args.eval_metric))
             if lr_scheduler is not None:
-                lr_scheduler.step(epoch + 1)
+                lr_scheduler.step(epoch + 1, eval_metrics.get(args.eval_metric))
     finally:
         shutdown.uninstall()
 
