@@ -46,7 +46,19 @@ convolution alone, forward and backward against their bounds (phase
 gradients against the CPU and its replays against the eager body
 (``convnext_train``); and, last, trained by the train driver from PNGs
 through the augment-epilogue kernel under the profiler in a subprocess and
-validated (``convnext_drivers``).
+validated (``convnext_drivers``). EfficientNetV2-S (``efficientnetv2_s``,
+full width and depth, 300 px, BatchNorm with running statistics) runs after
+ConvNeXt-B's train phase: bf16 on the card against fp32 on the CPU in eval
+and train mode, running statistics included (``effnet_model``); served
+through the engine's bucket graphs in eval mode (``effnet_serve``); trained
+through ClassificationTask with drop path and dropout 0.2, one
+``fused_adamw`` launch an update, its module families (BatchNorm + SiLU,
+depthwise and other convolutions, SE) timed alone, gradients against the
+CPU, and the replayed step against its eager body, running statistics
+included, with and without gradient accumulation 2 (``effnet_train``);
+and, last, the train driver from PNGs through the augment-epilogue kernel,
+stopped by SIGTERM and resumed bit for bit, then validated
+(``effnet_drivers``).
 
 Phase ``kernels`` reads the kernel registry (``timm_tpu_torch/kernels/
 registry.py``): every registered kernel is held to its plain version at
@@ -777,13 +789,16 @@ def phase_breakdown(engine):
 
 
 def _train_task(seed: int, device, dtype, drop_path_rate: float, opt: str = 'adamw',
-                model_name: str = 'vit_base_patch16_224', opt_kw=None, **task_kw):
+                model_name: str = 'vit_base_patch16_224', opt_kw=None, model_kw=None, **task_kw):
     import timm_tpu_torch
     from timm_tpu_torch.loss import LabelSmoothingCrossEntropy
     model = timm_tpu_torch.create_model(model_name, dtype=dtype, seed=seed,
-                                        drop_path_rate=drop_path_rate, device=device)
+                                        drop_path_rate=drop_path_rate, device=device,
+                                        **(model_kw or {}))
     if model_name.startswith('convnext'):
         _lift_from_init(model)
+    if model_name == EFFNET:
+        _damp_residual_branches(model)
     opt = timm_tpu_torch.create_optimizer_v2(model, opt=opt, lr=TRAIN_LR, weight_decay=0.05,
                                              **({'momentum': 0.9} if opt == 'sgd' else {}),
                                              **(opt_kw or {}))
@@ -791,10 +806,10 @@ def _train_task(seed: int, device, dtype, drop_path_rate: float, opt: str = 'ada
         model, optimizer=opt, train_loss_fn=LabelSmoothingCrossEntropy(0.1), seed=seed, **task_kw)
 
 
-def _train_batch(n: int, seed: int, device):
+def _train_batch(n: int, seed: int, device, size: int = 224):
     import torch
     labels = np.random.default_rng(seed).integers(0, 1000, n)
-    return {'input': torch.from_numpy(_images(n, seed=seed)).to(device),
+    return {'input': torch.from_numpy(_images(n, size=size, seed=seed)).to(device),
             'target': torch.from_numpy(labels).to(device)}
 
 
@@ -1286,7 +1301,8 @@ def _jsd_graph_vs_eager(batches, data_config):
                       'gen': gen.get_state(),
                       'step_ms': start.elapsed_time(end) / (AUGMIX_STEPS - TRAIN_WARMUP_STEPS)}
     e, g = runs['eager'], runs['graph']
-    names = ['params', 'count', 'lr', 'ema_decay', 'sentinel'] + list(task.optimizer.slots()) + ['ema']
+    names = ['params', 'count', 'lr', 'ema_decay', 'sentinel'] + list(task.optimizer.slots()) + [
+        'ema'] + list(_model_buffers(task))
     differ = [n for n, a, b in zip(names, e['state'], g['state']) if not _bit_equal(a, b)]
     if not torch.equal(e['gen'], g['gen']):
         differ.append('drop_generator')
@@ -1508,8 +1524,9 @@ DRIVER_EVAL_REL_TOL = 1e-4         # validate's loss vs the train run's EMA eval
 
 
 def _checkpoint_groups(path: str):
-    """{group: {key: array}} of a checkpoint's weights, EMA and optimizer."""
-    groups = {'state_dict': {}, 'state_dict_ema': {}, 'optimizer': {}}
+    """{group: {key: array}} of a checkpoint's weights, EMA, optimizer and
+    persistent buffers (BatchNorm's running statistics)."""
+    groups = {'state_dict': {}, 'state_dict_ema': {}, 'optimizer': {}, 'model_state': {}}
     with np.load(path, allow_pickle=False) as data:
         for k in data.files:
             g = k.split('.', 1)[0]
@@ -1946,17 +1963,26 @@ def _bit_equal(a, b) -> bool:
     return torch.equal(a, b)
 
 
+def _model_buffers(task):
+    """{name: tensor} of the model's persistent buffers (BatchNorm's running
+    statistics; none for ViT and ConvNeXt)."""
+    from timm_tpu_torch.utils.serialization import persistent_buffers
+    return persistent_buffers(task.model)
+
+
 def _train_state(task):
-    """Every tensor a train step updates or reads as state."""
+    """Every tensor a train step updates or reads as state, the model's
+    running statistics last."""
     opt = task.optimizer
     return ([opt.flat_param, opt.count, opt.lr_t, opt.ema_decay_t, task._sentinel_state]
-            + list(opt.slots().values()) + ([opt.ema] if opt.ema is not None else []))
+            + list(opt.slots().values()) + ([opt.ema] if opt.ema is not None else [])
+            + list(_model_buffers(task).values()))
 
 
 def _graph_vs_eager(opt_name: str, accum: int, batches, nan_batch, timed: bool,
                     model_name: str = 'vit_base_patch16_224', steps: int = TRAIN_STEPS,
                     nan_step: int = TRAIN_GRAPH_NAN_STEP, drop_path_rate: float = 0.1,
-                    opt_kw=None):
+                    opt_kw=None, model_kw=None):
     """One task (ViT-B/16 unless ``model_name``; bf16, drop_path 0.1, clip
     1.0, EMA 0.9998 with warmup, cosine lr with 3 warmup steps, the guard
     on) from one state: ``steps`` (20) eager steps of the step body (what
@@ -1970,7 +1996,8 @@ def _graph_vs_eager(opt_name: str, accum: int, batches, nan_batch, timed: bool,
     import timm_tpu_torch
     from timm_tpu_torch.layers.drop import get_drop_generator
     task = _train_task(0, 'cuda', torch.bfloat16, drop_path_rate, opt=opt_name, clip_grad=1.0,
-                       grad_accum_steps=accum, model_name=model_name, opt_kw=opt_kw)
+                       grad_accum_steps=accum, model_name=model_name, opt_kw=opt_kw,
+                       model_kw=model_kw)
     task.setup_ema(decay=0.9998, warmup=True)
     gen = get_drop_generator(task.model)
     sched, _ = timm_tpu_torch.create_scheduler_v2(
@@ -2014,7 +2041,7 @@ def _graph_vs_eager(opt_name: str, accum: int, batches, nan_batch, timed: bool,
                       'step_ms': start.elapsed_time(end) / (steps - TRAIN_WARMUP_STEPS)}
     e, g = runs['eager'], runs['graph']
     names = ['params', 'count', 'lr', 'ema_decay', 'sentinel'] + list(task.optimizer.slots()) + (
-        ['ema'] if task.optimizer.ema is not None else [])
+        ['ema'] if task.optimizer.ema is not None else []) + list(_model_buffers(task))
     differ = [n for n, a, b in zip(names, e['state'], g['state']) if not _bit_equal(a, b)]
     if not torch.equal(e['gen'], g['gen']):
         differ.append('drop_generator')
@@ -2746,6 +2773,609 @@ def phase_convnext_drivers():
     return {k.__name__: sum(r[k.__name__] for r in row['launches'].values()) for k in kernels}
 
 
+# ---- EfficientNetV2-S: phases effnet_model, effnet_serve, effnet_train and
+# effnet_drivers ----------------------------------------------------------------
+EFFNET = 'efficientnetv2_s'
+EFFNET_SIZE = 300                         # its cfg's input size
+EFFNET_DROP_PATH, EFFNET_DROP_RATE = 0.2, 0.2
+EFFNET_CALIB_BATCH = 8
+# the scale of the last BatchNorm of every residual branch (see
+# _damp_residual_branches)
+EFFNET_BRANCH_SCALE = 0.1
+# eval mode runs BatchNorm's whole chain in bf16, as JAX does: against the
+# CPU in fp32 that lands further off than the train mode's fp32 chain
+EFFNET_EVAL_FP32_TOL = 5e-2
+EFFNET_FP32_TOL = 1e-4     # the card in fp32 (TF32 off) vs the CPU in fp32
+EFFNET_BATCHNORMS = 110                   # the stem's, the blocks', the head's
+# phase effnet_train's replayed step against its eager body: 5 steps, the
+# 4th non-finite
+EFFNET_GRAPH_STEPS, EFFNET_NAN_STEP = 5, 4
+EFFNET_GRAD_BATCH = 4
+EFFNET_DRIVER_FLAGS = [
+    '--model', EFFNET, '--amp', '-b', '64', '--epochs', '1',
+    '--opt', 'adamw', '--lr', '3e-4', '--weight-decay', '0.05', '--clip-grad', '1.0',
+    '--sched', 'cosine', '--warmup-epochs', '0', '--drop-path', str(EFFNET_DROP_PATH),
+    '--drop', str(EFFNET_DROP_RATE), '--smoothing', '0.1', '--mixup', '0.8', '--cutmix', '1.0',
+    '--reprob', '0.25', '--remode', 'const', '--color-jitter', '0.4', '--device-augment',
+    '--device-prefetch', '2', '--workers', '6', '--model-ema', '--model-ema-decay', '0.9998',
+    '--checkpoint-hist', '1', '--seed', '0']
+EFFNET_DRIVER_SIGTERM_AT = 4
+
+
+def _calibrate_bn(model, x):
+    """Running statistics set to one batch's: every BatchNorm's momentum 1
+    for one train-mode forward of ``x`` without gradients, then restored.
+    At init they are 0 and 1, which leave a random-weight network's
+    activations unnormalised in eval mode, so an eval comparison would hold
+    numbers far from any a trained model computes."""
+    import torch
+    from timm_tpu_torch.layers import BatchNorm2d
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    saved = [m.momentum for m in bns]
+    was_training = model.training
+    model.train()
+    for m in bns:
+        m.momentum = 1.0
+    with torch.no_grad():
+        model(x)
+    for m, momentum in zip(bns, saved):
+        m.momentum = momentum
+    return model.train(was_training)
+
+
+def _damp_residual_branches(model, scale: float = EFFNET_BRANCH_SCALE):
+    """The scale of the last BatchNorm of every residual branch set to
+    ``scale``. At random init, with scale 1, a deep BatchNorm network is
+    chaotic: rounding grows with depth, so bf16 lands far from fp32 on any
+    device (phase effnet_model measures this on undamped weights: the
+    ``undamped`` readings of its row), which a trained network's does not;
+    zero-initialising these scales is the usual practice for residual
+    BatchNorm networks. Copied in place, the same on every device."""
+    import torch
+    from timm_tpu_torch.models._efficientnet_blocks import ConvBnAct, EdgeResidual, InvertedResidual
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (ConvBnAct, EdgeResidual, InvertedResidual)) and m.has_skip:
+                last = {ConvBnAct: 'bn1', EdgeResidual: 'bn2'}.get(type(m), 'bn3')
+                getattr(m, last).weight.fill_(scale)
+    return model
+
+
+def _effnet(device, dtype=None, calibrate: bool = True, damp: bool = True, **kw):
+    """efficientnetv2_s, seed-0 weights, with ``damp`` the residual
+    branches damped; with ``calibrate``, its running statistics from a
+    seeded batch of EFFNET_CALIB_BATCH images."""
+    import torch
+    import timm_tpu_torch
+    model = timm_tpu_torch.create_model(EFFNET, dtype=dtype, seed=0, device=device, **kw)
+    if damp:
+        _damp_residual_branches(model)
+    if calibrate:
+        x = torch.from_numpy(_images(EFFNET_CALIB_BATCH, size=EFFNET_SIZE, seed=5)).to(device)
+        _calibrate_bn(model, x)
+    return model
+
+
+def _batch_stats(model, before):
+    """{key: the batch statistic that one train-mode forward blended into
+    each running statistic}: (after - (1 - momentum) before) / momentum, in
+    fp64 on the host, from the running statistics ``before`` that forward
+    ({key: tensor}) and the model's after it."""
+    from timm_tpu_torch.layers import BatchNorm2d
+    after = model.state_dict()
+    out = {}
+    for name, m in model.named_modules():
+        if isinstance(m, BatchNorm2d):
+            for leaf in ('running_mean', 'running_var'):
+                k = f'{name}.{leaf}'
+                new = after[k].double().cpu()
+                out[k] = ((new - (1.0 - m.momentum) * before[k].double().cpu())
+                          / m.momentum).numpy()
+    return out
+
+
+def _stats_rel(a, b):
+    """Relative L2 of the means and of the variances of ``a`` against
+    ``b`` ({key: array}), each over all layers at once, and the layer with
+    the largest absolute difference."""
+    out = {}
+    for leaf in ('running_mean', 'running_var'):
+        keys = [k for k in b if k.endswith(leaf)]
+        diff = {k: float(np.abs(a[k] - b[k]).max()) for k in keys}
+        x = np.concatenate([a[k].ravel() for k in keys])
+        y = np.concatenate([b[k].ravel() for k in keys])
+        worst = max(diff, key=diff.get)
+        out[leaf] = {'rel_l2': rel_l2(x, y), 'max_abs_diff_layer': worst,
+                     'max_abs_diff': diff[worst]}
+    return out
+
+
+def _undamped_eval(x):
+    """The witness for _damp_residual_branches: efficientnetv2_s with
+    seed-0 weights as created (not damped), statistics calibrated on the
+    CPU in fp32, in eval mode on ``x``; relative L2 of the logits of bf16
+    on the card, bf16 on the CPU and fp32 on the CPU, pairwise."""
+    import torch
+    cpu = _effnet('cpu', damp=False)
+    card = _effnet('cuda', torch.bfloat16, calibrate=False, damp=False)
+    cpu_bf16 = _effnet('cpu', torch.bfloat16, calibrate=False, damp=False)
+    for m in (card, cpu_bf16):
+        m.load_state_dict(cpu.state_dict())
+    logits = {}
+    with torch.no_grad():
+        for k, m in (('card_bf16', card), ('cpu_bf16', cpu_bf16), ('cpu_fp32', cpu)):
+            xd = torch.from_numpy(x).to(next(m.parameters()).device)
+            logits[k] = m.eval()(xd).float().cpu().numpy()
+    del card, cpu, cpu_bf16
+    return {'card_bf16_vs_cpu_bf16': rel_l2(logits['card_bf16'], logits['cpu_bf16']),
+            'card_bf16_vs_cpu_fp32': rel_l2(logits['card_bf16'], logits['cpu_fp32']),
+            'cpu_bf16_vs_cpu_fp32': rel_l2(logits['cpu_bf16'], logits['cpu_fp32']),
+            'finite': all(bool(np.isfinite(v).all()) for v in logits.values())}
+
+
+def phase_effnet_model():
+    """efficientnetv2_s at full width and depth (stem 24, stages
+    r2/r4/r4/r6/r9/r15, head 1280, 300 px), seed-0 weights with the
+    residual branches damped, running statistics calibrated on the CPU, at
+    batch 8. Eval mode (running statistics): bf16 on the card against bf16
+    on the CPU within 2e-2 and against fp32 on the CPU within
+    EFFNET_EVAL_FP32_TOL (eval runs BatchNorm's whole chain in bf16, as
+    JAX), and the card in fp32 against the CPU in fp32 within
+    EFFNET_FP32_TOL. Train mode (batch statistics): bf16 on the card
+    against fp32 on the CPU within 2e-2, and the batch statistics that
+    forward blended into the running ones (recovered from the running
+    statistics before and after it) within 2e-2. Last, the same eval
+    comparisons on undamped weights, recorded as the damping's witness."""
+    import torch
+    x = _images(8, size=EFFNET_SIZE)
+    cpu = _effnet('cpu')
+    models = {'card_bf16': ('cuda', torch.bfloat16), 'cpu_bf16': ('cpu', torch.bfloat16),
+              'card_fp32': ('cuda', None)}
+    models = {k: _effnet(d, t, calibrate=False) for k, (d, t) in models.items()}
+    for m in models.values():
+        m.load_state_dict(cpu.state_dict())
+    models['cpu_fp32'] = cpu
+    card = models['card_bf16']
+    before = {k: v.clone() for k, v in cpu.state_dict().items() if k.endswith(('_mean', '_var'))}
+    row = {'phase': 'effnet_model', 'model': EFFNET, 'batch': 8, 'size': EFFNET_SIZE,
+           'dtype': 'bfloat16', 'params': sum(p.numel() for p in card.parameters()),
+           'leaves': len(list(card.parameters())),
+           'batchnorms': sum(1 for n in card.state_dict() if n.endswith('running_mean')),
+           'branch_scale': EFFNET_BRANCH_SCALE, 'tol': MODEL_REL_L2_TOL,
+           'eval_fp32_tol': EFFNET_EVAL_FP32_TOL, 'fp32_tol': EFFNET_FP32_TOL}
+    logits = {}
+    with torch.no_grad():
+        for mode in ('eval', 'train'):
+            for k, m in models.items():
+                if mode == 'train' and k in ('cpu_bf16', 'card_fp32'):
+                    continue
+                m.train(mode == 'train')
+                xd = torch.from_numpy(x).to(next(m.parameters()).device)
+                t0 = time.perf_counter()
+                logits[mode, k] = m(xd).float().cpu().numpy()
+                row[f'{mode}_{k}_seconds'] = time.perf_counter() - t0
+    for (mode, k), v in logits.items():
+        check(v.shape == (8, 1000), f'effnet_model: {mode} {k} logits shape {v.shape}')
+    row.update(
+        eval_rel_l2_card_bf16_vs_cpu_bf16=rel_l2(logits['eval', 'card_bf16'],
+                                                 logits['eval', 'cpu_bf16']),
+        eval_rel_l2_vs_cpu_fp32=rel_l2(logits['eval', 'card_bf16'], logits['eval', 'cpu_fp32']),
+        eval_rel_l2_cpu_bf16_vs_cpu_fp32=rel_l2(logits['eval', 'cpu_bf16'],
+                                                logits['eval', 'cpu_fp32']),
+        eval_rel_l2_card_fp32_vs_cpu_fp32=rel_l2(logits['eval', 'card_fp32'],
+                                                 logits['eval', 'cpu_fp32']),
+        train_rel_l2_vs_cpu_fp32=rel_l2(logits['train', 'card_bf16'], logits['train', 'cpu_fp32']),
+        finite=all(bool(np.isfinite(v).all()) for v in logits.values()))
+    stats = _stats_rel(_batch_stats(card, before), _batch_stats(cpu, before))
+    row['batch_stats_of_train_forward'] = stats
+    del card, cpu, models
+    t0 = time.perf_counter()
+    row['undamped_eval_rel_l2'] = _undamped_eval(x)
+    row['undamped_seconds'] = time.perf_counter() - t0
+    emit(row)
+    check(row['finite'], 'effnet_model: non-finite logits')
+    for key, tol in (('eval_rel_l2_card_bf16_vs_cpu_bf16', MODEL_REL_L2_TOL),
+                     ('eval_rel_l2_vs_cpu_fp32', EFFNET_EVAL_FP32_TOL),
+                     ('eval_rel_l2_card_fp32_vs_cpu_fp32', EFFNET_FP32_TOL),
+                     ('train_rel_l2_vs_cpu_fp32', MODEL_REL_L2_TOL)):
+        check(row[key] <= tol, f'effnet_model: {key} {row[key]} > {tol}')
+    for leaf, r in stats.items():
+        check(r['rel_l2'] <= MODEL_REL_L2_TOL,
+              f'effnet_model: batch {leaf} of a train forward rel L2 {r["rel_l2"]} > '
+              f'{MODEL_REL_L2_TOL}')
+    check(row['undamped_eval_rel_l2']['finite'], 'effnet_model: non-finite undamped logits')
+    torch.cuda.empty_cache()
+
+
+def phase_effnet_serve():
+    """The engine serving efficientnetv2_s in bf16 (running statistics
+    calibrated on the card), one CUDA graph per bucket captured at
+    add_model, in eval mode: 200 requests of 300 px images in the bursts of
+    phase serve; served rows against their direct forward; each bucket's
+    replay bit for bit against an eager forward; eager and replayed forward
+    ms per bucket; under torch.profiler 3 replays of bucket 64 by kernel
+    family, with the idle share. No kernel of the port lies on this path:
+    the wrappers' counts must not move."""
+    import torch
+    from timm_tpu_torch import InferenceEngine
+    from timm_tpu_torch.kernels import registry
+    from timm_tpu_torch.kernels.harness import time_ms
+    counters = registry.launch_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    n = sum(SERVE_BURSTS)
+    images = _images(n, size=EFFNET_SIZE, seed=1)
+    engine = InferenceEngine(buckets=SERVE_BUCKETS, max_wait_ms=5.0, device='cuda')
+    engine.add_model(EFFNET, factory=lambda: _effnet('cuda', torch.bfloat16))
+    engine.start()
+    futures, submitted, wall = _serve_bursts(engine, images)
+    engine.shutdown(drain=True)
+    stats = engine.snapshot_stats()
+    served = np.stack([f.result() for f in futures])
+    lat_ms = np.array([(f.done_at - s) * 1e3 for f, s in zip(futures, submitted)])
+    res = engine.pool.acquire(EFFNET)
+    model, graphs = res.model, engine.aot_executables(EFFNET)
+    per_bucket, replay_equal = {}, {}
+    with torch.inference_mode():
+        direct = np.concatenate([
+            model(torch.from_numpy(images[j:j + 8]).cuda()).float().cpu().numpy()
+            for j in range(0, n, 8)])
+        for b in SERVE_BUCKETS:
+            x = torch.from_numpy(_images(b, size=EFFNET_SIZE, seed=10 + b))
+            replayed = graphs[b].run(x.pin_memory())
+            eager = model(x.cuda()).float()
+            replay_equal[str(b)] = bool(torch.equal(replayed, eager))
+            xc = x.cuda()
+            graphs[b].static_in.copy_(xc)
+            eager_ms = time_ms(lambda: model(xc), iters=5, warmup=1)
+            replay_ms = time_ms(graphs[b].graph.replay, iters=10, warmup=2)
+            per_bucket[str(b)] = {'forward_ms': eager_ms, 'replay_ms': replay_ms,
+                                  'replay_img_per_s': b / replay_ms * 1e3}
+        reps = 3
+        graphs[64].static_in.copy_(torch.from_numpy(_images(64, size=EFFNET_SIZE, seed=3)).cuda())
+        kernels, counts, replay_wall_ms = _profile_kernels(graphs[64].graph.replay, reps)
+    busy = sum(kernels.values())
+    fams = _families(kernels, counts, reps)
+    errs = [rel_l2(served[j], direct[j]) for j in range(n)]
+    prewarm = stats['prewarm'][EFFNET]
+    moved = {k: fn.launches - before[k] for k, fn in counters.items() if fn.launches != before[k]}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    emit({'phase': 'effnet_serve', 'model': EFFNET, 'size': EFFNET_SIZE, 'dtype': 'bfloat16',
+          'requests': n, 'completed': stats['completed'], 'failed': stats['failed'],
+          'training_mode': model.training,
+          'steps_by_bucket': stats['steps_by_bucket'],
+          'replays_by_bucket': stats['replays_by_bucket'],
+          'p50_ms': float(np.percentile(lat_ms, 50)), 'p99_ms': float(np.percentile(lat_ms, 99)),
+          'img_per_s': n / wall, 'wall_s': wall, 'per_bucket': per_bucket,
+          'max_rel_l2_vs_direct': max(errs), 'tol': SERVE_REL_L2_TOL,
+          'prewarm_ms': prewarm['ms'], 'graph_bytes': prewarm['graph_bytes'],
+          'replay_equals_eager_bit_for_bit': replay_equal, 'wrapper_launches': moved,
+          'profiled_bucket': 64, 'replay_wall_ms': replay_wall_ms,
+          'replay_device_ms': busy if kernels else 'not measured',
+          'replay_idle_share': 1.0 - busy / replay_wall_ms if kernels else 'not measured',
+          'replay_kernels_per_forward': sum(counts.values()) / reps if kernels
+          else 'not measured',
+          'replay_ms_by_family': fams['ms'], 'replay_kernels_by_family': fams['kernels'],
+          'top_kernels': [{'kernel': k[:120], 'ms': v} for k, v in top]})
+    check(not model.training, 'effnet_serve: the served model is in training mode')
+    check(stats['completed'] == n and stats['failed'] == 0,
+          f'effnet_serve: {stats["failed"]} failed requests')
+    check(set(stats['steps_by_bucket']) == set(SERVE_BUCKETS),
+          f'effnet_serve: buckets dispatched {stats["steps_by_bucket"]}')
+    check(stats['replays_by_bucket'] == stats['steps_by_bucket'],
+          f'effnet_serve: replays {stats["replays_by_bucket"]} for steps {stats["steps_by_bucket"]}')
+    check(prewarm['mode'] == 'graph' and prewarm['programs'] == len(SERVE_BUCKETS),
+          f'effnet_serve: prewarm captured {prewarm["programs"]} graphs ({prewarm["mode"]})')
+    check(not moved, f'effnet_serve: the port\'s kernels launched {moved}')
+    check(bool(np.isfinite(served).all()), 'effnet_serve: non-finite logits')
+    check(max(errs) <= SERVE_REL_L2_TOL, f'effnet_serve: max rel L2 {max(errs)} > {SERVE_REL_L2_TOL}')
+    check(all(replay_equal.values()), f'effnet_serve: replay vs eager bit for bit: {replay_equal}')
+    check(bool(kernels), 'effnet_serve: the profiler saw no kernel of the replays')
+    del engine, res, model, graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _effnet_module_families(x):
+    """Device ms of efficientnetv2_s's module families alone at a train
+    step's shapes (bf16, train mode, batch of ``x``): every BatchNormAct2d
+    (batch statistics, running-statistics update, normalisation and SiLU),
+    the depthwise convolutions, the other convolutions and the SE modules,
+    each family's modules run on the inputs one forward gave them, forward
+    alone and forward + backward (input and parameter gradients against a
+    seeded upstream gradient), from CUDA-graph replays (``harness.graph_ms``),
+    with each family's bound (bytes: every input read and output written
+    once, forward and backward; operations for the convolutions: 2 k^2
+    C_in/g a output element forward, twice that backward)."""
+    import torch
+    from timm_tpu_torch.kernels.harness import graph_ms
+    from timm_tpu_torch.kernels.registry import PEAK_BYTES_PER_S, PEAK_OPS_PER_S
+    from timm_tpu_torch.layers import BatchNormAct2d, Conv2d, SEModule
+    model = _effnet('cuda', torch.bfloat16, calibrate=False).train()
+    pairs = {'batchnorm_act': [], 'depthwise_conv': [], 'other_conv': [], 'squeeze_excite': []}
+
+    def family(m):
+        if isinstance(m, BatchNormAct2d):
+            return 'batchnorm_act'
+        if isinstance(m, Conv2d):
+            return 'depthwise_conv' if m.groups == m.in_channels > 1 else 'other_conv'
+        return 'squeeze_excite' if isinstance(m, SEModule) else None
+
+    hooks = []
+    for m in model.modules():
+        f = family(m)
+        if f is not None:
+            hooks.append(m.register_forward_hook(
+                lambda mod, inp, out, f=f: pairs[f].append((mod, inp[0].detach().clone()))))
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    g = torch.Generator(device='cuda').manual_seed(3)
+    rows = {}
+    for f, mods in pairs.items():
+        xs = [x_.requires_grad_(True) for _, x_ in mods]
+        with torch.no_grad():
+            outs = [m(x_) for (m, _), x_ in zip(mods, xs)]
+        dys = [torch.randn(o.shape, generator=g, device='cuda').to(o.dtype) for o in outs]
+        params = [p for m, _ in mods for p in m.parameters()]
+        bound = 0.0
+        for (m, _), x_, o in zip(mods, xs, outs):
+            act = (x_.numel() + o.numel()) * x_.element_size()
+            if isinstance(m, Conv2d):
+                ops = 2 * o.numel() * (m.in_channels // m.groups) * m.kernel_size[0] * m.kernel_size[1]
+                wbytes = m.weight.numel() * 2
+                bound += max((act + wbytes) / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S['bfloat16'])
+                bound += max((act + x_.numel() * 2 + 2 * wbytes) / PEAK_BYTES_PER_S,
+                             2 * ops / PEAK_OPS_PER_S['bfloat16'])
+            else:
+                bound += (act + act + x_.numel() * x_.element_size()) / PEAK_BYTES_PER_S
+        del outs
+
+        def forward():
+            with torch.no_grad():
+                for (m, _), x_ in zip(mods, xs):
+                    m(x_)
+
+        def forward_backward():
+            ys = [m(x_) for (m, _), x_ in zip(mods, xs)]
+            torch.autograd.grad(ys, xs + params, dys)
+        rows[f] = {'modules': len(mods), 'input_elements': sum(x_.numel() for x_ in xs),
+                   'fwd_ms': graph_ms(forward, per_graph=1, replays=5),
+                   'fwd_bwd_ms': graph_ms(forward_backward, per_graph=1, replays=5),
+                   'fwd_bwd_bound_ms': bound * 1e3}
+        del xs, dys, params
+        torch.cuda.empty_cache()
+    del model, pairs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_effnet_train():
+    """ClassificationTask on efficientnetv2_s (bf16 compute, fp32
+    parameters) with drop path 0.2 and dropout 0.2, label smoothing 0.1,
+    AdamW (wd 0.05 with the mask), clip 1.0, EMA 0.9998, cosine with 3
+    warmup steps: 20 steps at batch 64 of 300 px images on one fixed batch,
+    steps 3-20 replays of one graph; the wrappers' counts per step; under
+    the profiler 3 more replayed steps by kernel family with the idle
+    share; the module families alone at the step's shapes. Then one step's
+    gradients, bf16 on the card against fp32 on the CPU at batch 4 (drop
+    path and dropout 0), and the replayed step against its eager body bit
+    for bit, running statistics included, over 5 steps from one state (the
+    4th non-finite), without and with gradient accumulation 2."""
+    import torch
+    import timm_tpu_torch
+    from timm_tpu_torch.kernels import flash_attention, fused_adamw
+    drops = {'drop_rate': EFFNET_DROP_RATE}
+    task = _train_task(0, 'cuda', torch.bfloat16, EFFNET_DROP_PATH, clip_grad=1.0,
+                       model_name=EFFNET, model_kw=drops)
+    task.setup_ema(decay=0.9998)
+    sched, _ = timm_tpu_torch.create_scheduler_v2(
+        TRAIN_LR, 'cosine', num_epochs=TRAIN_STEPS, warmup_epochs=3, warmup_lr=1e-6)
+    batch = _train_batch(TRAIN_BATCH, 4, 'cuda', size=EFFNET_SIZE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    flash_attention.launches = fused_adamw.launches = 0
+    metrics, adamw_steps, flash_steps = [], [], []
+    t0 = time.perf_counter()
+    for step in range(TRAIN_STEPS):
+        if step == TRAIN_WARMUP_STEPS:
+            start.record()
+        f0, a0 = flash_attention.launches, fused_adamw.launches
+        metrics.append(task.train_step(batch, lr=sched.step(step)[0], step=step + 1))
+        flash_steps.append(flash_attention.launches - f0)
+        adamw_steps.append(fused_adamw.launches - a0)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {'flash_attention': flash_attention.launches, 'fused_adamw': fused_adamw.launches}
+    step_ms = start.elapsed_time(end) / (TRAIN_STEPS - TRAIN_WARMUP_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats_finite = all(bool(torch.isfinite(b).all()) for b in _model_buffers(task).values())
+    reps = 3
+    kernels, counts, prof_wall_ms = _profile_kernels(
+        lambda: task.train_step(batch, lr=1e-5, step=TRAIN_STEPS + 1), reps)
+    replayed = _per_step(counts, reps)
+    busy = sum(kernels.values())
+    fams = _families(kernels, counts, reps)
+    adamw_ms = sum(v for k, v in kernels.items() if 'fused_adamw' in k)
+    losses = [float(m['loss']) for m in metrics]
+    row = {'phase': 'effnet_train', 'model': EFFNET, 'size': EFFNET_SIZE, 'dtype': 'bfloat16',
+           'batch': TRAIN_BATCH, 'steps': TRAIN_STEPS, 'drop_path_rate': EFFNET_DROP_PATH,
+           'drop_rate': EFFNET_DROP_RATE,
+           'losses': losses, 'grad_norms': [float(m['grad_norm']) for m in metrics],
+           'running_stats_finite': stats_finite,
+           'step_ms': step_ms, 'img_per_s': TRAIN_BATCH / step_ms * 1e3, 'wall_s': wall,
+           'peak_memory_gb': peak_gb, 'graph_pool_bytes': task.train_graphs.pool_bytes(),
+           'graph_static_input_bytes': task.train_graphs.static_bytes(),
+           'captures': task.train_graphs.captures, 'replays': task.train_graphs.replays,
+           'wrapper_fused_adamw_launches_per_step': adamw_steps,
+           'wrapper_flash_launches_per_step': flash_steps, 'launches': launches,
+           'profiled_replays': reps, 'replayed_kernels_per_step': replayed if kernels else
+           'not measured', 'replay_wall_ms_per_step': prof_wall_ms,
+           'replay_device_ms_per_step': busy if kernels else 'not measured',
+           'replay_idle_share': 1.0 - busy / prof_wall_ms if kernels else 'not measured',
+           'replay_ms_by_family': fams['ms'], 'replay_kernels_by_family': fams['kernels'],
+           'top_kernels': [{'kernel': k[:120], 'ms': v}
+                           for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]]}
+    del task
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the module families alone, at the step's shapes
+    # (alone, a family also computes what the step skips, such as the
+    # stem's input gradient, so the shares are each an upper bound)
+    modules = _effnet_module_families(batch['input'])
+    row['module_families_alone'] = modules
+    row['family_alone_share_of_step_device_ms'] = (
+        {f: r['fwd_bwd_ms'] / busy for f, r in modules.items()} if kernels else 'not measured')
+    row['fused_adamw_replayed_ms'] = adamw_ms
+
+    # one step's gradients, bf16 on the card against fp32 on the CPU
+    grad_batch = _train_batch(EFFNET_GRAD_BATCH, 5, 'cpu', size=EFFNET_SIZE)
+    grads = {}
+    for device, dtype in (('cuda', torch.bfloat16), ('cpu', None)):
+        t = _train_task(0, device, dtype, 0.0, nonfinite_guard=False, model_name=EFFNET)
+        t.train_step(grad_batch, lr=0.0, step=1)
+        grads[device] = t.optimizer.flat_grad.float().cpu()
+        del t
+    torch.cuda.empty_cache()
+    g_card, g_cpu = grads['cuda'], grads['cpu']
+    grad_err = float((g_card - g_cpu).norm() / g_cpu.norm())
+    row.update(grad_batch=EFFNET_GRAD_BATCH, grad_rel_l2_bf16_card_vs_fp32_cpu=grad_err,
+               grad_tol=GRAD_REL_L2_TOL, grads_finite=bool(torch.isfinite(g_card).all()))
+
+    # the replayed step against its eager body, from one state
+    batches = [_train_batch(TRAIN_BATCH, 60 + i, 'cuda', size=EFFNET_SIZE) for i in range(2)]
+    nan_batch = dict(batches[0], input=batches[0]['input'].clone())
+    nan_batch['input'][5, 50, 50, 2] = float('nan')
+    row['graph_vs_eager'] = []
+    for accum in (1, 2):
+        graph_row, task = _graph_vs_eager(
+            'adamw', accum, batches, nan_batch, False, model_name=EFFNET,
+            steps=EFFNET_GRAPH_STEPS, nan_step=EFFNET_NAN_STEP, drop_path_rate=EFFNET_DROP_PATH,
+            model_kw=drops)
+        graph_row['running_stats_compared'] = len(_model_buffers(task))
+        del task
+        gc.collect()
+        torch.cuda.empty_cache()
+        row['graph_vs_eager'].append(graph_row)
+    emit(row)
+    check(all(np.isfinite(losses)), f'effnet_train: non-finite loss in {losses}')
+    check(losses[-1] < losses[0], f'effnet_train: last loss {losses[-1]} not below {losses[0]}')
+    check(stats_finite, 'effnet_train: non-finite running statistics')
+    check(adamw_steps == [1, 1] + [0] * (TRAIN_STEPS - 2),
+          f'effnet_train: fused_adamw wrapper launches per step {adamw_steps}')
+    check(flash_steps == [0] * TRAIN_STEPS, f'effnet_train: flash launches per step {flash_steps}')
+    check(row['captures'] == 1, 'effnet_train: the step was not captured once')
+    check(bool(kernels) and replayed['fused_adamw'] == 1 and replayed['flash_attention'] == 0,
+          f'effnet_train: a replayed step ran {replayed}')
+    check(bool(torch.isfinite(g_card).all()), 'effnet_train: non-finite gradients on the card')
+    check(grad_err <= GRAD_REL_L2_TOL, f'effnet_train: gradient rel L2 {grad_err} > {GRAD_REL_L2_TOL}')
+    for graph_row in row['graph_vs_eager']:
+        arm = f'effnet_train (accumulation {graph_row["grad_accum_steps"]})'
+        check(graph_row['running_stats_compared'] == 2 * EFFNET_BATCHNORMS,
+              f'{arm}: {graph_row["running_stats_compared"]} statistics compared')
+        check(not graph_row['buffers_that_differ'],
+              f'{arm}: replays differ from eager steps in {graph_row["buffers_that_differ"]}')
+        check(not graph_row['steps_whose_metrics_differ'],
+              f'{arm}: metrics differ at steps {graph_row["steps_whose_metrics_differ"]}')
+        check(graph_row['skipped_steps'] == [EFFNET_NAN_STEP],
+              f'{arm}: the guard skipped steps {graph_row["skipped_steps"]}')
+        check(graph_row['captures'] == 1 and graph_row['replays'] >= EFFNET_GRAPH_STEPS - 1,
+              f'{arm}: {graph_row["captures"]} captures, {graph_row["replays"]} replays')
+    return launches
+
+
+def phase_effnet_drivers():
+    """``python -m timm_tpu_torch.train --model efficientnetv2_s``'s
+    ``main(argv)`` from a folder of seeded PNGs written as phase
+    input_train writes its own (576 train, 192 validation): --device-augment
+    with 'const' erasing (the augment-epilogue kernel) and Mixup / CutMix,
+    drop path and dropout 0.2, EMA, one epoch of 9 updates: run A
+    uninterrupted, run B stopped by SIGTERM after update 4 and run C
+    resumed from it with --resume auto; C's last.npz held to A's bit for bit
+    (weights, EMA, optimizer state and running statistics). Then
+    ``validate`` on A's EMA weights and statistics, whose loss must be
+    within DRIVER_EVAL_REL_TOL of A's last EMA evaluation. The wrappers'
+    counts are read around each run."""
+    import contextlib
+    import csv
+    import shutil
+    import tempfile
+
+    import torch
+
+    from timm_tpu_torch import train, validate
+    from timm_tpu_torch.kernels import augment_epilogue, flash_attention, fused_adamw
+    kernels = (flash_attention, fused_adamw, augment_epilogue)
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_effnet_')
+    row = {'phase': 'effnet_drivers', 'model': EFFNET, 'dtype': 'bfloat16',
+           'flags': ' '.join(EFFNET_DRIVER_FLAGS), 'sigterm_at': EFFNET_DRIVER_SIGTERM_AT,
+           'wall_s': {}, 'launches': {}}
+
+    def run(fn, argv):
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            result = fn(argv)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return result, time.perf_counter() - t0, {k.__name__: k.launches for k in kernels}
+
+    try:
+        data, out = os.path.join(tmp, 'data'), os.path.join(tmp, 'out')
+        n_train = _write_image_folder(os.path.join(data, 'train'), INPUT_IMAGES_PER_CLASS)
+        n_val = _write_image_folder(os.path.join(data, 'validation'), DRIVER_VALIDATION_PER_CLASS,
+                                    seed=1)
+        updates = n_train // TRAIN_BATCH
+        row.update(train_images=n_train, validation_images=n_val, updates=updates)
+
+        def train_argv(experiment, *extra):
+            return EFFNET_DRIVER_FLAGS + ['--data-dir', data, '--output', out,
+                                          '--experiment', experiment, *extra]
+        for name, argv in (('a', train_argv('a')),
+                           ('b', train_argv('b', '--fault-inject',
+                                            f'sigterm@{EFFNET_DRIVER_SIGTERM_AT}')),
+                           ('c', train_argv('b', '--resume', 'auto'))):
+            rc, wall, launches = run(train.main, argv)
+            row['wall_s'][name], row['launches'][name] = wall, launches
+            check(rc == 0, f'effnet_drivers: run {name.upper()} exited {rc}')
+            check(launches['fused_adamw'] >= 1 and launches['augment_epilogue'] >= 1
+                  and launches['flash_attention'] == 0,
+                  f'effnet_drivers: run {name.upper()} wrapper launches {launches}')
+        with open(os.path.join(out, 'a', 'summary.csv')) as f:
+            rows = list(csv.DictReader(f))
+        ema_loss = float(rows[-1]['eval_loss_ema'])
+        row['final_ema_eval'] = {'loss': ema_loss, 'top1': float(rows[-1]['eval_top1_ema'])}
+        ckpt_a = _checkpoint_groups(os.path.join(out, 'a', 'last.npz'))
+        ckpt_c = _checkpoint_groups(os.path.join(out, 'b', 'last.npz'))
+        c_vs_a = _max_diff(ckpt_c, ckpt_a)
+        row['running_statistics_in_checkpoint'] = len(ckpt_a['model_state'])
+        row['resumed_vs_uninterrupted'] = {g: {'tensors_differ': n, 'max_abs_diff': d}
+                                           for g, (n, d) in c_vs_a.items()}
+        del ckpt_a, ckpt_c
+        eval_argv = ['--model', EFFNET, '--checkpoint', os.path.join(out, 'a', 'last.npz'),
+                     '--use-ema', '--amp', '-b', '64', '--workers', '6', '--data-dir', data]
+        val, wall, launches = run(lambda argv: validate.validate(validate.parser.parse_args(argv)),
+                                  eval_argv)
+        row['wall_s']['validate'], row['launches']['validate'] = wall, launches
+        row['validate'] = {'loss': val['loss'], 'top1': val['top1'], 'img_per_s': val['img_per_s']}
+        check(row['running_statistics_in_checkpoint'] == 2 * EFFNET_BATCHNORMS,
+              f'effnet_drivers: {row["running_statistics_in_checkpoint"]} statistics in last.npz')
+        check(all(n == 0 for n, _ in c_vs_a.values()),
+              f'effnet_drivers: the resumed last.npz differs from the uninterrupted one: {c_vs_a}')
+        check(abs(val['loss'] - ema_loss) <= DRIVER_EVAL_REL_TOL * abs(ema_loss),
+              f'effnet_drivers: validate loss {val["loss"]} vs the EMA eval {ema_loss}')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        emit(row)  # what was measured, also when a check failed
+    torch.cuda.empty_cache()
+    return {k.__name__: sum(r[k.__name__] for r in row['launches'].values()) for k in kernels}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2785,10 +3415,14 @@ def main() -> int:
         phase_convnext_model()
         phase_convnext_serve()
         convnext_train_launches = phase_convnext_train()
+        phase_effnet_model()
+        phase_effnet_serve()
+        effnet_train_launches = phase_effnet_train()
         input_launches = phase_input_train(train_step_ms)
         recipe_launches = phase_recipe_train()
         driver_launches = phase_drivers()
         convnext_driver_launches = phase_convnext_drivers()
+        effnet_driver_launches = phase_effnet_drivers()
     except Exception:
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -2806,12 +3440,15 @@ def main() -> int:
                                 'recipe_train': recipe_launches['fused_adamw'],
                                 'drivers': driver_launches['fused_adamw'],
                                 'convnext_train': convnext_train_launches['fused_adamw'],
-                                'convnext_drivers': convnext_driver_launches['fused_adamw']},
+                                'convnext_drivers': convnext_driver_launches['fused_adamw'],
+                                'effnet_train': effnet_train_launches['fused_adamw'],
+                                'effnet_drivers': effnet_driver_launches['fused_adamw']},
                 'augment_epilogue': {'input_train': input_launches['augment_epilogue'],
                                      'recipe_train': recipe_launches['augment_epilogue'],
                                      'drivers': driver_launches['augment_epilogue'],
                                      'convnext_drivers':
-                                         convnext_driver_launches['augment_epilogue']}}
+                                         convnext_driver_launches['augment_epilogue'],
+                                     'effnet_drivers': effnet_driver_launches['augment_epilogue']}}
     previous_rows = {'flash_attention': {r['case']: r for r in flash_checks['previous']},
                      'augment_epilogue': {r['case']: r for r in augment_rows}}
     lines = []

@@ -373,8 +373,17 @@ def test_norms_match_jax(jx, norm, dtype):
 
 
 def test_norm_factory_raises_for_batchnorm():
-    with pytest.raises(NotImplementedError, match='ResNet'):
-        get_norm_layer('batchnorm2d')
+    """The batchnorm and groupnorm names, which raised until BatchNorm was
+    ported, now build the ported layers (the JAX package's map); an
+    unknown name still raises."""
+    from timm_tpu_torch.layers import BatchNorm2d, GroupNorm, GroupNorm1
+    for name, cls in (('batchnorm', BatchNorm2d), ('batchnorm2d', BatchNorm2d),
+                      ('batch_norm1d', BatchNorm2d), ('groupnorm', GroupNorm),
+                      ('groupnorm1', GroupNorm1)):
+        assert get_norm_layer(name) is cls
+        layer = create_norm_layer(name, 32)
+        assert isinstance(layer, cls) and layer.weight.shape == (32,)
+    assert create_norm_layer('groupnorm', 32).num_groups == 32
     with pytest.raises(ValueError, match='Unknown'):
         get_norm_layer('nonorm')
 

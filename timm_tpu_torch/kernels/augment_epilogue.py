@@ -220,7 +220,8 @@ def _register():
         name='augment_epilogue',
         module=__name__,
         regime="the device augment stage's 'const'-erase epilogue at loader batch shapes "
-               '(64 or 128 x 224 x 224 x 3 uint8): one read of the image and its mixup '
+               '(64 or 128 x 224 x 224 x 3 uint8, 64 x 300 x 300 x 3): one read of the image '
+               'and its mixup '
                'partner, one normalised write',
         gate='beat the plain augment program at every declared case on the card, or be '
              'deleted',
@@ -242,6 +243,10 @@ def _register():
                        dry=dict(batch=8, size=32, erase_k=1),
                        live=dict(batch=64, size=224, erase_k=1), statics=dict(_STATICS),
                        desc="the input path's batch of 64, the main path"),
+            KernelCase(name='mix_erase_b64_300',
+                       dry=dict(batch=8, size=32, erase_k=1),
+                       live=dict(batch=64, size=300, erase_k=1), statics=dict(_STATICS),
+                       desc="efficientnetv2_s's input path: batch 64 at its cfg's 300 px"),
             KernelCase(name='edge_odd_b',
                        dry=dict(batch=7, size=24, width=21, erase_k=3),
                        live=dict(batch=63, size=224, width=221, erase_k=3),

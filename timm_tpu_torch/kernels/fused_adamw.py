@@ -351,6 +351,12 @@ def _register():
                        statics=dict(weight_decay=0.05),
                        desc="ConvNeXt-B's leaf set and decay mask (344 leaves, every "
                             "ndim <= 1 leaf and bias undecayed), its train step's update"),
+            KernelCase(name='effnetv2_s',
+                       dry=mixed, live=dict(model='efficientnetv2_s'),
+                       statics=dict(weight_decay=0.05),
+                       desc="EfficientNetV2-S's leaf set and decay mask (452 leaves, "
+                            "21,458,488 parameters, 171 conv and linear weights decayed: "
+                            "21,268,424), its train step's update"),
         ),
     ))
 

@@ -13,6 +13,12 @@ them, as XLA does in JAX: no Pallas kernel is involved there.
 Padding follows the JAX package (reference padding.py): ``''`` and ``None``
 are symmetric torch-style padding, ``'same'`` is TF-SAME (asymmetric at
 stride > 1 on even inputs, so an explicit ``F.pad``), ``'valid'`` none.
+
+``create_conv2d`` dispatches as JAX's: a list ``kernel_size`` builds a
+``MixedConv2d``, ``num_experts > 0`` a ``CondConv2d``, anything else a
+``Conv2d``. ``ConvNormAct`` and ``SeparableConvNormAct`` are the conv + norm
++ act composites (``norm_act.py``); anti-aliased downsampling (blur pool)
+is not ported (ROADMAP A.5.9) and raises.
 """
 from __future__ import annotations
 
@@ -27,7 +33,8 @@ from .helpers import to_2tuple
 from .linear import compute_dtype
 from .weight_init import variance_scaling_
 
-__all__ = ['Conv2d', 'ConvNormAct', 'SeparableConvNormAct', 'create_conv2d', 'get_padding']
+__all__ = ['Conv2d', 'ConvNormAct', 'SeparableConvNormAct', 'create_conv2d', 'get_aa_layer',
+           'get_padding']
 
 
 def get_padding(kernel_size: int, stride: int = 1, dilation: int = 1):
@@ -104,10 +111,19 @@ class Conv2d(nn.Module):
                 f'stride={self.stride}, padding={self.padding}, groups={self.groups}')
 
 
+def get_aa_layer(aa_layer=None):
+    """The anti-aliasing layer of a name or class: only None is ported; blur
+    pool (``'blur'``, ``'blurpc'``, ...) comes with the rest of the zoo."""
+    if aa_layer is None:
+        return None
+    raise NotImplementedError(f'anti-aliasing layer {aa_layer!r} (blur pool) is not ported yet '
+                              '(ROADMAP A.5.9, with the rest of the zoo)')
+
+
 def create_conv2d(
         in_channels: int,
         out_channels: int,
-        kernel_size: Union[int, tuple] = 3,
+        kernel_size: Union[int, tuple, list] = 3,
         stride: int = 1,
         padding='',
         dilation: int = 1,
@@ -117,17 +133,24 @@ def create_conv2d(
         num_experts: int = 0,
         dtype: Optional[torch.dtype] = None,
         generator: Optional[torch.Generator] = None,
-) -> Conv2d:
+) -> nn.Module:
     """An NHWC conv with timm's argument conventions; ``depthwise`` sets
-    ``groups`` to ``in_channels``."""
+    ``groups`` to ``in_channels``. A list ``kernel_size`` gives a
+    ``MixedConv2d``, ``num_experts > 0`` a ``CondConv2d``."""
     if isinstance(kernel_size, list):
-        raise NotImplementedError('MixedConv2d (a list kernel_size) is not ported yet '
-                                  '(ROADMAP A.5.6, the EfficientNet step)')
-    if num_experts > 0:
-        raise NotImplementedError('CondConv2d (num_experts > 0) is not ported yet '
-                                  '(ROADMAP A.5.6, the EfficientNet step)')
+        from .mixed_conv2d import MixedConv2d
+        if num_experts:
+            raise ValueError('MixedConv2d takes no experts')
+        return MixedConv2d(in_channels, out_channels, kernel_size, stride=stride, padding=padding,
+                           dilation=dilation, depthwise=depthwise or groups == in_channels,
+                           bias=bias, dtype=dtype, generator=generator)
     if depthwise:
         groups = in_channels
+    if num_experts > 0:
+        from .cond_conv2d import CondConv2d
+        return CondConv2d(in_channels, out_channels, kernel_size, stride=stride, padding=padding,
+                          dilation=dilation, groups=groups, bias=bias, num_experts=num_experts,
+                          dtype=dtype, generator=generator)
     kernel_size = to_2tuple(kernel_size)
     return Conv2d(in_channels, out_channels, kernel_size, stride=stride,
                   padding=_resolve_padding(padding, kernel_size, stride, dilation),
@@ -135,10 +158,61 @@ def create_conv2d(
 
 
 class ConvNormAct(nn.Module):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError('ConvNormAct comes with norm_act.py (BatchNorm with running '
-                                  'statistics), ROADMAP A.5.6, the ResNet step')
+    """conv -> (drop) -> norm + act (``BatchNormAct2d`` unless
+    ``norm_layer``), or conv -> act without a norm."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size=1, stride: int = 1,
+                 padding='', dilation: int = 1, groups: int = 1, bias: bool = False,
+                 apply_norm: bool = True, apply_act: bool = True, norm_layer=None,
+                 act_layer='relu', aa_layer=None, drop_layer=None,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        from .create_act import get_act_fn
+        from .norm_act import BatchNormAct2d
+        if aa_layer is not None and to_2tuple(stride)[0] > 1:
+            get_aa_layer(aa_layer)
+        self.conv = create_conv2d(in_channels, out_channels, kernel_size, stride=stride,
+                                  padding=padding, dilation=dilation, groups=groups, bias=bias,
+                                  dtype=dtype, generator=generator)
+        if apply_norm:
+            self.bn = (norm_layer or BatchNormAct2d)(out_channels, apply_act=apply_act,
+                                                     act_layer=act_layer, drop_layer=drop_layer,
+                                                     dtype=dtype)
+            self.drop = None
+        else:
+            self.bn = get_act_fn(act_layer) if apply_act else None
+            self.drop = drop_layer() if drop_layer is not None else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        if self.drop is not None:
+            x = self.drop(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return x
 
 
-class SeparableConvNormAct(ConvNormAct):
-    pass
+class SeparableConvNormAct(nn.Module):
+    """Depthwise conv -> pointwise conv -> norm + act (``conv_dw``,
+    ``conv_pw``, ``bn``, JAX's names)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, dilation: int = 1, padding='', bias: bool = False,
+                 channel_multiplier: float = 1.0, pw_kernel_size: int = 1, norm_layer=None,
+                 act_layer='relu', apply_act: bool = True,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        from .norm_act import BatchNormAct2d
+        mid = int(in_channels * channel_multiplier)
+        self.conv_dw = create_conv2d(in_channels, mid, kernel_size, stride=stride,
+                                     dilation=dilation, padding=padding, depthwise=True,
+                                     dtype=dtype, generator=generator)
+        self.conv_pw = create_conv2d(mid, out_channels, pw_kernel_size, padding=padding,
+                                     bias=bias, dtype=dtype, generator=generator)
+        self.bn = (norm_layer or BatchNormAct2d)(out_channels, apply_act=apply_act,
+                                                 act_layer=act_layer, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.bn(self.conv_pw(self.conv_dw(x)))

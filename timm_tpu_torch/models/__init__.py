@@ -9,4 +9,5 @@ from ._registry import (
     register_model, split_model_name_tag,
 )
 from .convnext import ConvNeXt
+from .efficientnet import EfficientNet
 from .vision_transformer import Block, VisionTransformer

@@ -7,9 +7,12 @@ Weights: the flat ``{dotted.path: np.ndarray}`` dict that
   .kernel (I, O)          -> .weight (O, I)        [transpose]
   .kernel (H, W, I, O)    -> .weight (O, I, H, W)  [conv HWIO -> OIHW]
   .scale                  -> .weight               [norm affine]
+  .mean / .var            -> .running_mean / .running_var  [BatchNorm statistics]
 
 Every other name carries over as it is, because the port's module tree
-mirrors the JAX package's.
+mirrors the JAX package's: MixedConv2d's per-split kernels are
+``convs.<i>.kernel`` on both sides, and CondConv2d keeps JAX's layout, its
+``weight`` (E, P) of HWIO-flat expert rows and ``bias`` (E, C_out).
 
 Task checkpoints (``convert_jax_checkpoint``): the single flat dict of
 ``timm_tpu.task.TrainingTask.get_checkpoint_state`` becomes the port's
@@ -80,6 +83,8 @@ def _convert_leaf(key: str, value) -> Tuple[str, np.ndarray]:
         key = base + dot + 'weight'
     elif leaf == 'scale':
         key = base + dot + 'weight'
+    elif leaf in ('mean', 'var'):
+        key = base + dot + 'running_' + leaf
     return key, np.ascontiguousarray(value)
 
 

@@ -30,14 +30,24 @@ the parameters and the optimizer's buffers: everything updates in place,
 and ``setup_ema`` drops them, as JAX drops its jitted step. Like JAX's,
 they bake in the task's configuration (``grad_accum_steps``, clipping).
 
+BatchNorm's running statistics are model state that the forward updates
+in place in training mode (``layers/norm.py``), as JAX threads them
+through its step: each microbatch of an accumulated step updates them in
+turn (JAX's ``lax.scan`` carry), the update is part of the captured graph,
+and the guard does not protect them: a non-finite batch leaves parameters,
+optimizer state and EMA untouched but its statistics stay, as JAX returns
+``new_rest`` unconditionally. The EMA covers parameters only; evaluation
+with the EMA weights runs on the live model's statistics, as JAX's does.
+
 Checkpoint state (``get_checkpoint_state`` / ``load_checkpoint_state``) is
 the JAX package's single flat dict with its prefixes: ``state_dict.*``,
-``state_dict_ema.*``, ``optimizer.*`` and ``model_state.*`` in the port's
-names and torch layout (``utils/serialization.py``), plus the drop-path /
+``state_dict_ema.*``, ``optimizer.*`` and ``model_state.*`` (persistent
+buffers: BatchNorm's running statistics) in the port's names and torch
+layout (``utils/serialization.py``), plus the drop-path /
 dropout generator's state under ``_resume.drop_rng_state``, which JAX does
 not need because it keys its dropout streams by step. Loading copies into
-the parameters, the optimizer's flat buffers and scalars and the generator
-in place, so the graphs survive a resume. ``models/_jax_convert.py`` turns
+the parameters, the running statistics, the optimizer's flat buffers and
+scalars and the generator in place, so the graphs survive a resume. ``models/_jax_convert.py`` turns
 a JAX task checkpoint into this form. Sharded placement is not ported
 (ROADMAP A.5.11).
 """
@@ -54,7 +64,9 @@ from ..resilience import (
     DROP_RNG_KEY, NonFiniteSentinel, capture_drop_rng, guard_enabled, new_sentinel_state,
     restore_drop_rng, tree_all_finite, update_sentinel_state,
 )
-from ..utils.serialization import add_prefix, load_module_arrays, module_arrays, split_prefix
+from ..utils.serialization import (
+    add_prefix, load_module_arrays, module_arrays, persistent_buffers, split_prefix,
+)
 from ..utils.clip_grad import clip_scale, dispatch_clip_grad, global_grad_norm
 from ..utils.cuda_graph import StepGraphs
 from ..utils.model_ema import ModelEmaV3
@@ -241,9 +253,8 @@ class TrainingTask:
     # -- checkpoint ------------------------------------------------------------
     def checkpoint_keys(self) -> List[str]:
         """The keys ``get_checkpoint_state`` returns, without copying state."""
-        sd_keys = set(self.model.state_dict().keys())
         keys = [f'state_dict.{n}' for n, _ in self.model.named_parameters()]
-        keys += [f'model_state.{n}' for n, _ in self.model.named_buffers() if n in sd_keys]
+        keys += [f'model_state.{n}' for n in persistent_buffers(self.model)]
         opt = self.optimizer
         if self.ema_params is not None:
             keys += [f'state_dict_ema.{n}' for n in self.ema_params]
@@ -270,9 +281,10 @@ class TrainingTask:
     def load_checkpoint_state(self, state: Mapping[str, np.ndarray], strict: bool = True,
                               load_opt: bool = True):
         """Restore from a flat checkpoint dict, in place. ``strict``: a
-        parameter, EMA or optimizer entry missing from ``state`` raises (a
-        shape mismatch always does). ``load_opt=False`` keeps the
-        optimizer's state as it is. Persistent buffers load when present."""
+        parameter, EMA, optimizer or persistent-buffer entry (BatchNorm's
+        running statistics) missing from ``state`` raises (a shape mismatch
+        always does). ``load_opt=False`` keeps the optimizer's state as it
+        is."""
         load_module_arrays(dict(self.model.named_parameters()), split_prefix(state, 'state_dict'),
                            'state_dict', strict=strict)
         opt = self.optimizer
@@ -281,9 +293,6 @@ class TrainingTask:
                            strict=strict)
         if load_opt and opt is not None and any(k.startswith('optimizer.') for k in state):
             opt.load_state_arrays(split_prefix(state, 'optimizer'), strict=strict)
-        buffers = split_prefix(state, 'model_state')
-        if buffers:
-            sd_keys = set(self.model.state_dict().keys())
-            load_module_arrays({n: b for n, b in self.model.named_buffers() if n in sd_keys},
-                               buffers, 'model_state', strict=False)
+        load_module_arrays(persistent_buffers(self.model), split_prefix(state, 'model_state'),
+                           'model_state', strict=strict)
         restore_drop_rng(state, get_drop_generator(self.model))

@@ -263,7 +263,7 @@ _UNPORTED = (
     ('fsdp', 'A.5.11'), ('tp', 'A.5.11'), ('distributed', 'A.5.11'), ('elastic', 'A.5.11'),
     ('nonfinite_rollback', 'A.5.11'),
     ('autotune', 'A.5.12'), ('autotune_probe_top_k', 'A.5.12'), ('log_wandb', 'A.5.12'),
-    ('split_bn', 'A.5.6: split BN comes with norm_act.py, the ResNet step'),
+    ('split_bn', 'A.5.6: split BN comes with split_batchnorm.py, the ResNet step'),
     ('epoch_repeats', 'A.5.1: the JAX script parses it and never reads it'),
     ('worker_seeding', 'A.5.1: the JAX script parses it and never reads it'),
     ('amp_dtype', 'A.5.7: --amp is bf16; the JAX script parses --amp-dtype and never reads it'),

@@ -16,7 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ['add_prefix', 'split_prefix', 'to_numpy', 'module_arrays', 'load_module_arrays']
+__all__ = ['add_prefix', 'split_prefix', 'to_numpy', 'persistent_buffers', 'module_arrays',
+           'load_module_arrays']
 
 
 def add_prefix(arrays: Mapping[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
@@ -39,11 +40,18 @@ def to_numpy(v) -> np.ndarray:
     return h.numpy().copy() if h.data_ptr() == t.data_ptr() else h.numpy()
 
 
+def persistent_buffers(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """{name: tensor} of ``module``'s persistent buffers (those its
+    ``state_dict`` holds: BatchNorm's running statistics), the tensors
+    themselves."""
+    sd_keys = set(module.state_dict().keys())
+    return {n: b for n, b in module.named_buffers() if n in sd_keys}
+
+
 def module_arrays(module: nn.Module) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
     """(parameters, persistent buffers) of ``module`` as numpy copies."""
-    sd_keys = set(module.state_dict().keys())
     params = {n: to_numpy(p) for n, p in module.named_parameters()}
-    buffers = {n: to_numpy(b) for n, b in module.named_buffers() if n in sd_keys}
+    buffers = {n: to_numpy(b) for n, b in persistent_buffers(module).items()}
     return params, buffers
 
 
