@@ -58,7 +58,20 @@ CPU, and the replayed step against its eager body, running statistics
 included, with and without gradient accumulation 2 (``effnet_train``);
 and, last, the train driver from PNGs through the augment-epilogue kernel,
 stopped by SIGTERM and resumed bit for bit, then validated
-(``effnet_drivers``).
+(``effnet_drivers``); its train phase also trains it with timm's
+EfficientNet RMSprop-TF recipe, replays against eager steps. ResNet-50
+(``resnet50``, full width and depth, 224 px, the residual branches damped)
+runs after EfficientNetV2-S's train phase: bf16 and fp32 on the card against
+fp32 on the CPU (``resnet_model``); served through the engine's bucket
+graphs (``resnet_serve``); trained with timm's SGD recipe, its BatchNorm +
+ReLU timed alone, gradients against the CPU, the replayed step against its
+eager body with split BN over 3 splits, an AdamW arm through
+``fused_adamw``, and every optimizer name of the JAX registry the port
+added last (5 replayed steps against eager ones, two updates against the
+CPU, the optimizer step timed) (``resnet_train``); and, last, timm's
+ResNet-50 AugMix / JSD / split-BN recipe through the train driver, stopped
+by SIGTERM and resumed bit for bit, validated, with test-time pooling, and
+inferred (``resnet_drivers``).
 
 Phase ``kernels`` reads the kernel registry (``timm_tpu_torch/kernels/
 registry.py``): every registered kernel is held to its plain version at
@@ -789,17 +802,26 @@ def phase_breakdown(engine):
 
 
 def _train_task(seed: int, device, dtype, drop_path_rate: float, opt: str = 'adamw',
-                model_name: str = 'vit_base_patch16_224', opt_kw=None, model_kw=None, **task_kw):
+                model_name: str = 'vit_base_patch16_224', opt_kw=None, model_kw=None,
+                weight_decay: float = 0.05, split_bn: int = 0, lr: float = TRAIN_LR, model=None,
+                **task_kw):
+    """A ClassificationTask on a new model (or on ``model``, as it is)."""
     import timm_tpu_torch
     from timm_tpu_torch.loss import LabelSmoothingCrossEntropy
-    model = timm_tpu_torch.create_model(model_name, dtype=dtype, seed=seed,
-                                        drop_path_rate=drop_path_rate, device=device,
-                                        **(model_kw or {}))
-    if model_name.startswith('convnext'):
-        _lift_from_init(model)
-    if model_name == EFFNET:
-        _damp_residual_branches(model)
-    opt = timm_tpu_torch.create_optimizer_v2(model, opt=opt, lr=TRAIN_LR, weight_decay=0.05,
+    if model is None:
+        model = timm_tpu_torch.create_model(model_name, dtype=dtype, seed=seed,
+                                            drop_path_rate=drop_path_rate, device=device,
+                                            **(model_kw or {}))
+        if model_name.startswith('convnext'):
+            _lift_from_init(model)
+        if model_name == EFFNET:
+            _damp_residual_branches(model)
+        if model_name == RESNET:
+            _damp_resnet(model)
+    if split_bn:
+        from timm_tpu_torch.layers import convert_splitbn_model
+        convert_splitbn_model(model, split_bn)
+    opt = timm_tpu_torch.create_optimizer_v2(model, opt=opt, lr=lr, weight_decay=weight_decay,
                                              **({'momentum': 0.9} if opt == 'sgd' else {}),
                                              **(opt_kw or {}))
     return timm_tpu_torch.ClassificationTask(
@@ -1975,33 +1997,39 @@ def _train_state(task):
     running statistics last."""
     opt = task.optimizer
     return ([opt.flat_param, opt.count, opt.lr_t, opt.ema_decay_t, task._sentinel_state]
-            + list(opt.slots().values()) + ([opt.ema] if opt.ema is not None else [])
-            + list(_model_buffers(task).values()))
+            + list(opt.slots().values())
+            + [t for tensors in opt.leaf_state().values() for t in tensors.values()]
+            + ([opt.ema] if opt.ema is not None else []) + list(_model_buffers(task).values()))
 
 
 def _graph_vs_eager(opt_name: str, accum: int, batches, nan_batch, timed: bool,
                     model_name: str = 'vit_base_patch16_224', steps: int = TRAIN_STEPS,
                     nan_step: int = TRAIN_GRAPH_NAN_STEP, drop_path_rate: float = 0.1,
-                    opt_kw=None, model_kw=None):
+                    opt_kw=None, model_kw=None, sched_kw=None, lr: float = TRAIN_LR,
+                    weight_decay: float = 0.05, split_bn: int = 0, model=None):
     """One task (ViT-B/16 unless ``model_name``; bf16, drop_path 0.1, clip
     1.0, EMA 0.9998 with warmup, cosine lr with 3 warmup steps, the guard
     on) from one state: ``steps`` (20) eager steps of the step body (what
     ``train_step`` stages and runs, the sentinel's poll included) and as many
     ``train_step`` calls (a warm-up, a capture, then replays), step
     ``nan_step`` non-finite, every metric and buffer and the drop
-    generator's state compared with torch.equal. With ``timed``: step ms
-    of steps 3-20 (CUDA events) and the idle share of 3 profiled steps of
-    each; the memory the graph keeps."""
+    generator's state compared with torch.equal. ``sched_kw`` replaces the
+    cosine schedule, ``lr`` its base rate; ``split_bn`` converts the model to
+    that many BatchNorm splits; ``model`` is used as it is in place of a
+    new one. With ``timed``: step ms of steps 3-20 (CUDA events) and the
+    idle share of 3 profiled steps of each; the memory the graph keeps."""
     import torch
     import timm_tpu_torch
     from timm_tpu_torch.layers.drop import get_drop_generator
     task = _train_task(0, 'cuda', torch.bfloat16, drop_path_rate, opt=opt_name, clip_grad=1.0,
                        grad_accum_steps=accum, model_name=model_name, opt_kw=opt_kw,
-                       model_kw=model_kw)
+                       model_kw=model_kw, weight_decay=weight_decay, split_bn=split_bn, lr=lr,
+                       model=model)
     task.setup_ema(decay=0.9998, warmup=True)
     gen = get_drop_generator(task.model)
     sched, _ = timm_tpu_torch.create_scheduler_v2(
-        TRAIN_LR, 'cosine', num_epochs=TRAIN_STEPS, warmup_epochs=3, warmup_lr=1e-6)
+        lr, **(sched_kw or dict(sched='cosine', num_epochs=TRAIN_STEPS, warmup_epochs=3,
+                                warmup_lr=1e-6)))
     lrs = [sched.step(i)[0] for i in range(TRAIN_STEPS)]
 
     def batch(i):
@@ -2040,7 +2068,8 @@ def _graph_vs_eager(opt_name: str, accum: int, batches, nan_batch, timed: bool,
                       'gen': gen.get_state(),
                       'step_ms': start.elapsed_time(end) / (steps - TRAIN_WARMUP_STEPS)}
     e, g = runs['eager'], runs['graph']
-    names = ['params', 'count', 'lr', 'ema_decay', 'sentinel'] + list(task.optimizer.slots()) + (
+    names = ['params', 'count', 'lr', 'ema_decay', 'sentinel'] + list(task.optimizer.slots()) + [
+        f'{slot}.{k}' for slot, t in task.optimizer.leaf_state().items() for k in t] + (
         ['ema'] if task.optimizer.ema is not None else []) + list(_model_buffers(task))
     differ = [n for n, a, b in zip(names, e['state'], g['state']) if not _bit_equal(a, b)]
     if not torch.equal(e['gen'], g['gen']):
@@ -2989,13 +3018,20 @@ def phase_effnet_model():
 
 def phase_effnet_serve():
     """The engine serving efficientnetv2_s in bf16 (running statistics
-    calibrated on the card), one CUDA graph per bucket captured at
-    add_model, in eval mode: 200 requests of 300 px images in the bursts of
-    phase serve; served rows against their direct forward; each bucket's
-    replay bit for bit against an eager forward; eager and replayed forward
-    ms per bucket; under torch.profiler 3 replays of bucket 64 by kernel
-    family, with the idle share. No kernel of the port lies on this path:
-    the wrappers' counts must not move."""
+    calibrated on the card): ``_bn_serve``."""
+    import torch
+    _bn_serve('effnet_serve', EFFNET, lambda: _effnet('cuda', torch.bfloat16), EFFNET_SIZE)
+
+
+def _bn_serve(phase: str, name: str, factory, size: int):
+    """The engine serving a BatchNorm model ``name`` (``factory`` builds it
+    on the card), one CUDA graph per bucket captured at add_model, in eval
+    mode: 200 requests of ``size`` px images in the bursts of phase serve;
+    served rows against their direct forward; each bucket's replay bit for
+    bit against an eager forward; eager and replayed forward ms per bucket;
+    under torch.profiler 3 replays of bucket 64 by kernel family, with the
+    idle share. No kernel of the port lies on this path: the wrappers'
+    counts must not move."""
     import torch
     from timm_tpu_torch import InferenceEngine
     from timm_tpu_torch.kernels import registry
@@ -3003,24 +3039,24 @@ def phase_effnet_serve():
     counters = registry.launch_counters()
     before = {k: fn.launches for k, fn in counters.items()}
     n = sum(SERVE_BURSTS)
-    images = _images(n, size=EFFNET_SIZE, seed=1)
+    images = _images(n, size=size, seed=1)
     engine = InferenceEngine(buckets=SERVE_BUCKETS, max_wait_ms=5.0, device='cuda')
-    engine.add_model(EFFNET, factory=lambda: _effnet('cuda', torch.bfloat16))
+    engine.add_model(name, factory=factory)
     engine.start()
     futures, submitted, wall = _serve_bursts(engine, images)
     engine.shutdown(drain=True)
     stats = engine.snapshot_stats()
     served = np.stack([f.result() for f in futures])
     lat_ms = np.array([(f.done_at - s) * 1e3 for f, s in zip(futures, submitted)])
-    res = engine.pool.acquire(EFFNET)
-    model, graphs = res.model, engine.aot_executables(EFFNET)
+    res = engine.pool.acquire(name)
+    model, graphs = res.model, engine.aot_executables(name)
     per_bucket, replay_equal = {}, {}
     with torch.inference_mode():
         direct = np.concatenate([
             model(torch.from_numpy(images[j:j + 8]).cuda()).float().cpu().numpy()
             for j in range(0, n, 8)])
         for b in SERVE_BUCKETS:
-            x = torch.from_numpy(_images(b, size=EFFNET_SIZE, seed=10 + b))
+            x = torch.from_numpy(_images(b, size=size, seed=10 + b))
             replayed = graphs[b].run(x.pin_memory())
             eager = model(x.cuda()).float()
             replay_equal[str(b)] = bool(torch.equal(replayed, eager))
@@ -3031,15 +3067,15 @@ def phase_effnet_serve():
             per_bucket[str(b)] = {'forward_ms': eager_ms, 'replay_ms': replay_ms,
                                   'replay_img_per_s': b / replay_ms * 1e3}
         reps = 3
-        graphs[64].static_in.copy_(torch.from_numpy(_images(64, size=EFFNET_SIZE, seed=3)).cuda())
+        graphs[64].static_in.copy_(torch.from_numpy(_images(64, size=size, seed=3)).cuda())
         kernels, counts, replay_wall_ms = _profile_kernels(graphs[64].graph.replay, reps)
     busy = sum(kernels.values())
     fams = _families(kernels, counts, reps)
     errs = [rel_l2(served[j], direct[j]) for j in range(n)]
-    prewarm = stats['prewarm'][EFFNET]
+    prewarm = stats['prewarm'][name]
     moved = {k: fn.launches - before[k] for k, fn in counters.items() if fn.launches != before[k]}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    emit({'phase': 'effnet_serve', 'model': EFFNET, 'size': EFFNET_SIZE, 'dtype': 'bfloat16',
+    emit({'phase': phase, 'model': name, 'size': size, 'dtype': 'bfloat16',
           'requests': n, 'completed': stats['completed'], 'failed': stats['failed'],
           'training_mode': model.training,
           'steps_by_bucket': stats['steps_by_bucket'],
@@ -3056,49 +3092,60 @@ def phase_effnet_serve():
           else 'not measured',
           'replay_ms_by_family': fams['ms'], 'replay_kernels_by_family': fams['kernels'],
           'top_kernels': [{'kernel': k[:120], 'ms': v} for k, v in top]})
-    check(not model.training, 'effnet_serve: the served model is in training mode')
+    check(not model.training, f'{phase}: the served model is in training mode')
     check(stats['completed'] == n and stats['failed'] == 0,
-          f'effnet_serve: {stats["failed"]} failed requests')
+          f'{phase}: {stats["failed"]} failed requests')
     check(set(stats['steps_by_bucket']) == set(SERVE_BUCKETS),
-          f'effnet_serve: buckets dispatched {stats["steps_by_bucket"]}')
+          f'{phase}: buckets dispatched {stats["steps_by_bucket"]}')
     check(stats['replays_by_bucket'] == stats['steps_by_bucket'],
-          f'effnet_serve: replays {stats["replays_by_bucket"]} for steps {stats["steps_by_bucket"]}')
+          f'{phase}: replays {stats["replays_by_bucket"]} for steps {stats["steps_by_bucket"]}')
     check(prewarm['mode'] == 'graph' and prewarm['programs'] == len(SERVE_BUCKETS),
-          f'effnet_serve: prewarm captured {prewarm["programs"]} graphs ({prewarm["mode"]})')
-    check(not moved, f'effnet_serve: the port\'s kernels launched {moved}')
-    check(bool(np.isfinite(served).all()), 'effnet_serve: non-finite logits')
-    check(max(errs) <= SERVE_REL_L2_TOL, f'effnet_serve: max rel L2 {max(errs)} > {SERVE_REL_L2_TOL}')
-    check(all(replay_equal.values()), f'effnet_serve: replay vs eager bit for bit: {replay_equal}')
-    check(bool(kernels), 'effnet_serve: the profiler saw no kernel of the replays')
+          f'{phase}: prewarm captured {prewarm["programs"]} graphs ({prewarm["mode"]})')
+    check(not moved, f'{phase}: the port\'s kernels launched {moved}')
+    check(bool(np.isfinite(served).all()), f'{phase}: non-finite logits')
+    check(max(errs) <= SERVE_REL_L2_TOL, f'{phase}: max rel L2 {max(errs)} > {SERVE_REL_L2_TOL}')
+    check(all(replay_equal.values()), f'{phase}: replay vs eager bit for bit: {replay_equal}')
+    check(bool(kernels), f'{phase}: the profiler saw no kernel of the replays')
     del engine, res, model, graphs
     gc.collect()
     torch.cuda.empty_cache()
 
 
 def _effnet_module_families(x):
-    """Device ms of efficientnetv2_s's module families alone at a train
-    step's shapes (bf16, train mode, batch of ``x``): every BatchNormAct2d
-    (batch statistics, running-statistics update, normalisation and SiLU),
-    the depthwise convolutions, the other convolutions and the SE modules,
-    each family's modules run on the inputs one forward gave them, forward
-    alone and forward + backward (input and parameter gradients against a
-    seeded upstream gradient), from CUDA-graph replays (``harness.graph_ms``),
-    with each family's bound (bytes: every input read and output written
-    once, forward and backward; operations for the convolutions: 2 k^2
-    C_in/g a output element forward, twice that backward)."""
+    """efficientnetv2_s's module families alone at a train step's shapes:
+    ``_module_families``, with its SE modules a family of their own."""
+    import torch
+    return _module_families(_effnet('cuda', torch.bfloat16, calibrate=False), x,
+                            ('batchnorm_act', 'depthwise_conv', 'other_conv', 'squeeze_excite'))
+
+
+def _module_families(model, x, names):
+    """Device ms of a model's module families alone at a train step's
+    shapes (bf16, train mode, batch of ``x``): every BatchNormAct2d (batch
+    statistics, running-statistics update, normalisation and activation),
+    the depthwise convolutions, the other convolutions and the SE modules
+    (those of ``names``), each family's modules run on the inputs one
+    forward gave them, forward alone and forward + backward (input and
+    parameter gradients against a seeded upstream gradient), from
+    CUDA-graph replays (``harness.graph_ms``), with each family's bound
+    (bytes: every input read and output written once, forward and backward;
+    operations for the convolutions: 2 k^2 C_in/g a output element forward,
+    twice that backward)."""
     import torch
     from timm_tpu_torch.kernels.harness import graph_ms
     from timm_tpu_torch.kernels.registry import PEAK_BYTES_PER_S, PEAK_OPS_PER_S
     from timm_tpu_torch.layers import BatchNormAct2d, Conv2d, SEModule
-    model = _effnet('cuda', torch.bfloat16, calibrate=False).train()
-    pairs = {'batchnorm_act': [], 'depthwise_conv': [], 'other_conv': [], 'squeeze_excite': []}
+    model = model.train()
+    pairs = {f: [] for f in names}
 
     def family(m):
         if isinstance(m, BatchNormAct2d):
-            return 'batchnorm_act'
-        if isinstance(m, Conv2d):
-            return 'depthwise_conv' if m.groups == m.in_channels > 1 else 'other_conv'
-        return 'squeeze_excite' if isinstance(m, SEModule) else None
+            f = 'batchnorm_act'
+        elif isinstance(m, Conv2d):
+            f = 'depthwise_conv' if m.groups == m.in_channels > 1 else 'other_conv'
+        else:
+            f = 'squeeze_excite' if isinstance(m, SEModule) else None
+        return f if f in pairs else None
 
     hooks = []
     for m in model.modules():
@@ -3261,6 +3308,17 @@ def phase_effnet_train():
         gc.collect()
         torch.cuda.empty_cache()
         row['graph_vs_eager'].append(graph_row)
+    # timm's EfficientNet recipe: rmsproptf (eps 1e-3, momentum 0.9, weight
+    # decay 1e-5) on the step schedule, 20 replayed steps against the eager body
+    rms_row, task = _graph_vs_eager(
+        'rmsproptf', 1, batches, nan_batch, False, model_name=EFFNET, steps=TRAIN_STEPS,
+        nan_step=EFFNET_NAN_STEP, drop_path_rate=EFFNET_DROP_PATH, model_kw=drops,
+        **EFFNET_RMSPROP)
+    rms_row['running_stats_compared'] = len(_model_buffers(task))
+    del task
+    gc.collect()
+    torch.cuda.empty_cache()
+    row['rmsproptf_graph_vs_eager'] = rms_row
     emit(row)
     check(all(np.isfinite(losses)), f'effnet_train: non-finite loss in {losses}')
     check(losses[-1] < losses[0], f'effnet_train: last loss {losses[-1]} not below {losses[0]}')
@@ -3273,8 +3331,9 @@ def phase_effnet_train():
           f'effnet_train: a replayed step ran {replayed}')
     check(bool(torch.isfinite(g_card).all()), 'effnet_train: non-finite gradients on the card')
     check(grad_err <= GRAD_REL_L2_TOL, f'effnet_train: gradient rel L2 {grad_err} > {GRAD_REL_L2_TOL}')
-    for graph_row in row['graph_vs_eager']:
-        arm = f'effnet_train (accumulation {graph_row["grad_accum_steps"]})'
+    for graph_row in row['graph_vs_eager'] + [rms_row]:
+        arm = (f'effnet_train ({graph_row["optimizer"]}, accumulation '
+               f'{graph_row["grad_accum_steps"]})')
         check(graph_row['running_stats_compared'] == 2 * EFFNET_BATCHNORMS,
               f'{arm}: {graph_row["running_stats_compared"]} statistics compared')
         check(not graph_row['buffers_that_differ'],
@@ -3285,6 +3344,8 @@ def phase_effnet_train():
               f'{arm}: the guard skipped steps {graph_row["skipped_steps"]}')
         check(graph_row['captures'] == 1 and graph_row['replays'] >= EFFNET_GRAPH_STEPS - 1,
               f'{arm}: {graph_row["captures"]} captures, {graph_row["replays"]} replays')
+    check(rms_row['replays'] >= TRAIN_STEPS - 2 and np.isfinite(rms_row['losses'][-1]),
+          f'effnet_train (rmsproptf): {rms_row["replays"]} replays, losses {rms_row["losses"]}')
     return launches
 
 
@@ -3376,6 +3437,497 @@ def phase_effnet_drivers():
     return {k.__name__: sum(r[k.__name__] for r in row['launches'].values()) for k in kernels}
 
 
+# ---- ResNet-50: phases resnet_model, resnet_serve, resnet_train and
+# resnet_drivers --------------------------------------------------------------------
+RESNET = 'resnet50'
+RESNET_SIZE = 224                         # its cfg's input size
+RESNET_POOL_SIZE = 288                    # validate --test-pool: above the default
+RESNET_BATCHNORMS = 53                    # the stem's, the blocks', the downsamples'
+# zero_init_last zeroes every block's last BatchNorm scale, so each block
+# starts as its shortcut; these phases set those scales to this value so the
+# residual branches are exercised, as EFFNET_BRANCH_SCALE does for
+# EfficientNetV2-S
+RESNET_BRANCH_SCALE = 0.1
+RESNET_CALIB_BATCH = 8
+# phase resnet_train: timm's ResNet SGD recipe (Nesterov momentum 0.9,
+# weight decay 1e-4 as the JAX factory's masked coupled L2, lr 0.05 cosine)
+RESNET_LR, RESNET_WD = 0.05, 1e-4
+RESNET_SPLITS, RESNET_SPLIT_BATCH = 3, 32  # split BN: 3 splits of 32
+RESNET_GRAPH_STEPS, RESNET_NAN_STEP = 5, 4
+RESNET_GRAD_BATCH = 4
+# one step's gradients at batch 4 of a random ResNet-50 are ill-conditioned:
+# train-mode BatchNorm over 4 images amplifies rounding (on a narrow
+# ResNet-50 on the CPU, fp32 lands 1.8e-3 from fp64, bf16 0.30, and JAX's
+# own bf16 0.28 from its fp32). So the card is held in fp32 to the CPU's
+# fp32 within RESNET_GRAD_TOL, and in bf16 no farther from the CPU's fp32
+# than RESNET_GRAD_BF16_SLACK times the CPU's own bf16 flow (or
+# GRAD_REL_L2_TOL)
+RESNET_GRAD_TOL = 1e-2
+RESNET_GRAD_BF16_SLACK = 1.25
+# every optimizer name this slice adds: 5 steps in the captured step (batch
+# RESNET_OPT_BATCH) against the eager body, and one update on the card
+# against the CPU in fp32 (TF32 off), each leaf within RESNET_OPT_TOL
+# relative L2
+RESNET_NEW_OPTIMIZERS = (
+    'rmsprop', 'rmsproptf', 'adam', 'nadam', 'radam', 'adamax', 'adabelief', 'lion', 'lars',
+    'adopt', 'adan', 'adafactor', 'adafactorbv', 'novograd', 'nvnovograd', 'yogi', 'sm3',
+    'adadelta', 'adagrad', 'sgdw', 'sgdp', 'momentum', 'adamp', 'lookahead')
+RESNET_OPT_BATCH, RESNET_OPT_STEPS = 8, 5
+RESNET_OPT_TOL = 1e-5
+# timm's ResNet-50 JSD + RandAugment recipe (without --resplit and
+# --dist-bn, which the JAX script lacks), with EMA for the validate check
+RESNET_DRIVER_FLAGS = [
+    '--model', RESNET, '-b', '64', '--epochs', '1', '--aug-splits', '3', '--jsd-loss',
+    '--split-bn', '--aa', 'rand-m9-mstd0.5-inc1', '--remode', 'pixel', '--reprob', '0.6',
+    '--sched', 'cosine', '--lr', '0.05', '--amp', '--workers', '6',
+    '--model-ema', '--model-ema-decay', '0.9998', '--checkpoint-hist', '1', '--seed', '0']
+RESNET_DRIVER_SIGTERM_AT = 4
+# phase effnet_train's rmsproptf arm: timm's EfficientNet recipe
+EFFNET_RMSPROP = dict(opt_kw={'eps': 1e-3, 'momentum': 0.9}, weight_decay=1e-5, lr=0.016,
+                      sched_kw=dict(sched='step', num_epochs=TRAIN_STEPS, decay_epochs=2.4,
+                                    decay_rate=0.97, warmup_epochs=3, warmup_lr=1e-6))
+
+
+def _damp_resnet(model, scale: float = RESNET_BRANCH_SCALE):
+    """The last BatchNorm scale of every block (bn2 of a BasicBlock, bn3 of
+    a Bottleneck) set to ``scale`` in place (see RESNET_BRANCH_SCALE)."""
+    import torch
+    from timm_tpu_torch.models.resnet import BasicBlock, Bottleneck
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (BasicBlock, Bottleneck)):
+                (m.bn2 if isinstance(m, BasicBlock) else m.bn3).weight.fill_(scale)
+    return model
+
+
+def _resnet(device, dtype=None, calibrate: bool = True, **kw):
+    """resnet50, seed-0 weights, the residual branches damped; with
+    ``calibrate``, its running statistics from a seeded batch."""
+    import torch
+    import timm_tpu_torch
+    model = _damp_resnet(timm_tpu_torch.create_model(RESNET, dtype=dtype, seed=0, device=device,
+                                                     **kw))
+    if calibrate:
+        x = torch.from_numpy(_images(RESNET_CALIB_BATCH, size=RESNET_SIZE, seed=5)).to(device)
+        _calibrate_bn(model, x)
+    return model
+
+
+def phase_resnet_model():
+    """resnet50 at full width and depth (224 px, 25,557,032 parameters in
+    161 leaves, 53 BatchNorms), the residual branches damped, running
+    statistics calibrated on the CPU, batch 8. Eval mode: bf16 on the card
+    against fp32 on the CPU within EFFNET_EVAL_FP32_TOL, and the card in
+    fp32 against the CPU in fp32 within EFFNET_FP32_TOL; train mode (batch
+    statistics): bf16 on the card against fp32 on the CPU within 2e-2, and
+    the batch statistics that forward blended in within 2e-2."""
+    import torch
+    x = _images(8, size=RESNET_SIZE)
+    cpu = _resnet('cpu')
+    models = {'card_bf16': ('cuda', torch.bfloat16), 'card_fp32': ('cuda', None)}
+    models = {k: _resnet(d, t, calibrate=False) for k, (d, t) in models.items()}
+    for m in models.values():
+        m.load_state_dict(cpu.state_dict())
+    models['cpu_fp32'] = cpu
+    card = models['card_bf16']
+    before = {k: v.clone() for k, v in cpu.state_dict().items() if k.endswith(('_mean', '_var'))}
+    row = {'phase': 'resnet_model', 'model': RESNET, 'batch': 8, 'size': RESNET_SIZE,
+           'dtype': 'bfloat16', 'params': sum(p.numel() for p in card.parameters()),
+           'leaves': len(list(card.parameters())),
+           'batchnorms': sum(1 for n in card.state_dict() if n.endswith('running_mean')),
+           'branch_scale': RESNET_BRANCH_SCALE, 'tol': MODEL_REL_L2_TOL,
+           'eval_fp32_tol': EFFNET_EVAL_FP32_TOL, 'fp32_tol': EFFNET_FP32_TOL}
+    logits = {}
+    with torch.no_grad():
+        for mode in ('eval', 'train'):
+            for k, m in models.items():
+                if mode == 'train' and k == 'card_fp32':
+                    continue
+                m.train(mode == 'train')
+                xd = torch.from_numpy(x).to(next(m.parameters()).device)
+                t0 = time.perf_counter()
+                logits[mode, k] = m(xd).float().cpu().numpy()
+                row[f'{mode}_{k}_seconds'] = time.perf_counter() - t0
+    for (mode, k), v in logits.items():
+        check(v.shape == (8, 1000), f'resnet_model: {mode} {k} logits shape {v.shape}')
+    row.update(
+        eval_rel_l2_vs_cpu_fp32=rel_l2(logits['eval', 'card_bf16'], logits['eval', 'cpu_fp32']),
+        eval_rel_l2_card_fp32_vs_cpu_fp32=rel_l2(logits['eval', 'card_fp32'],
+                                                 logits['eval', 'cpu_fp32']),
+        train_rel_l2_vs_cpu_fp32=rel_l2(logits['train', 'card_bf16'], logits['train', 'cpu_fp32']),
+        finite=all(bool(np.isfinite(v).all()) for v in logits.values()))
+    stats = _stats_rel(_batch_stats(card, before), _batch_stats(cpu, before))
+    row['batch_stats_of_train_forward'] = stats
+    del card, cpu, models
+    emit(row)
+    check(row['finite'], 'resnet_model: non-finite logits')
+    check((row['params'], row['leaves'], row['batchnorms']) == (25_557_032, 161, RESNET_BATCHNORMS),
+          f'resnet_model: {row["params"]} parameters, {row["leaves"]} leaves, '
+          f'{row["batchnorms"]} BatchNorms')
+    for key, tol in (('eval_rel_l2_vs_cpu_fp32', EFFNET_EVAL_FP32_TOL),
+                     ('eval_rel_l2_card_fp32_vs_cpu_fp32', EFFNET_FP32_TOL),
+                     ('train_rel_l2_vs_cpu_fp32', MODEL_REL_L2_TOL)):
+        check(row[key] <= tol, f'resnet_model: {key} {row[key]} > {tol}')
+    for leaf, r in stats.items():
+        check(r['rel_l2'] <= MODEL_REL_L2_TOL,
+              f'resnet_model: batch {leaf} of a train forward rel L2 {r["rel_l2"]} > '
+              f'{MODEL_REL_L2_TOL}')
+    torch.cuda.empty_cache()
+
+
+def phase_resnet_serve():
+    """The engine serving resnet50 in bf16 (running statistics calibrated
+    on the card): ``_bn_serve``."""
+    import torch
+    _bn_serve('resnet_serve', RESNET, lambda: _resnet('cuda', torch.bfloat16), RESNET_SIZE)
+
+
+def _optimizer_arm(opt_name: str, models, batches, nan_batch):
+    """One optimizer name on resnet50 (``models``: the card's bf16 model for
+    the train step, and fp32 copies on the CPU and the card): RESNET_OPT_STEPS
+    steps in the captured step against its eager body (``_graph_vs_eager``,
+    the 4th non-finite); one update on the card against the CPU in fp32
+    (TF32 off): from the same weights, one step on a seeded gradient (ADOPT's
+    first update is zero), then the update each computes for a second one
+    (the optimizer's ``_update`` and wrappers, before it is added to the
+    parameters, whose rounding would hide a small update), the largest
+    relative L2 of a leaf's; and the optimizer step alone replayed as a CUDA
+    graph (``harness.graph_ms``)."""
+    import torch
+    import timm_tpu_torch
+    from timm_tpu_torch.kernels.harness import graph_ms
+    row, task = _graph_vs_eager(opt_name, 1, batches, nan_batch, False, model_name=RESNET,
+                                steps=RESNET_OPT_STEPS, nan_step=RESNET_NAN_STEP,
+                                drop_path_rate=0.0, lr=RESNET_LR, weight_decay=RESNET_WD,
+                                model=models['train'])
+    del task
+    models['cuda'].load_state_dict(models['cpu'].state_dict())  # one start on both
+    opts = {d: timm_tpu_torch.create_optimizer_v2(models[d], opt=opt_name, lr=RESNET_LR,
+                                                  weight_decay=RESNET_WD) for d in ('cpu', 'cuda')}
+    rng = np.random.default_rng(7)
+    grads = [torch.from_numpy(rng.standard_normal(opts['cpu'].flat_grad.numel(),
+                                                  dtype=np.float32) * 0.01) for _ in range(2)]
+    updates = {}
+    for d, o in opts.items():
+        o.flat_grad.copy_(grads[0].to(o.device))
+        o.step(lr=RESNET_LR, grad_scale=torch.tensor(0.5, device=o.device),
+               ok=torch.tensor(True, device=o.device))
+        with torch.no_grad():
+            g = grads[1].to(o.device) * 0.5
+            u, new = o._update(g, o.flat_param)
+            updates[d] = o.views(o._wrap(u, g, o.flat_param, new))
+    worst = 0.0
+    for name, a in updates['cpu'].items():
+        b = updates['cuda'][name].cpu()
+        worst = max(worst, float((b - a).norm()) / max(float(a.norm()), 1e-30))
+    card = opts['cuda']
+    scale, ok = torch.tensor(0.5, device='cuda'), torch.tensor(True, device='cuda')
+    row['optimizer_step_ms'] = graph_ms(lambda: card.step(grad_scale=scale, ok=ok), per_graph=1,
+                                        replays=5)
+    row['card_vs_cpu_update_rel_l2'] = worst
+    del opts, card, updates
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_resnet_train():
+    """ClassificationTask on resnet50 (bf16 compute, fp32 parameters, the
+    residual branches damped) with timm's SGD recipe (Nesterov momentum 0.9,
+    weight decay 1e-4 as masked coupled L2, lr 0.05 on a cosine schedule),
+    label smoothing 0.1: 20 steps at batch 64 on one fixed batch, steps 3-20
+    replays of one graph; under the profiler 3 more replayed steps by kernel
+    family with the idle share; the 53 BatchNorm + ReLU and the
+    convolutions alone at the step's shapes. Then one step's gradients,
+    bf16 on the card against fp32 on the CPU at batch 4; the replayed step
+    against its eager body bit for bit with split BN over 3 splits of 32
+    (parameters, momentum, every primary and aux statistic); an AdamW arm
+    through fused_adamw (its wrapper once at the warm-up and capture, once a
+    replayed step under the profiler); and every optimizer name this slice
+    adds (``_optimizer_arm``)."""
+    import torch
+    import timm_tpu_torch
+    from timm_tpu_torch.kernels import flash_attention, fused_adamw
+    t_phase = time.perf_counter()
+    task = _train_task(0, 'cuda', torch.bfloat16, 0.0, opt='sgd', model_name=RESNET,
+                       weight_decay=RESNET_WD, lr=RESNET_LR)
+    sched, _ = timm_tpu_torch.create_scheduler_v2(RESNET_LR, 'cosine', num_epochs=TRAIN_STEPS,
+                                                  warmup_epochs=3, warmup_lr=1e-6)
+    batch = _train_batch(TRAIN_BATCH, 4, 'cuda', size=RESNET_SIZE)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    flash_attention.launches = fused_adamw.launches = 0
+    metrics = []
+    for step in range(TRAIN_STEPS):
+        if step == TRAIN_WARMUP_STEPS:
+            start.record()
+        metrics.append(task.train_step(batch, lr=sched.step(step)[0], step=step + 1))
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / (TRAIN_STEPS - TRAIN_WARMUP_STEPS)
+    reps = 3
+    kernels, counts, prof_wall_ms = _profile_kernels(
+        lambda: task.train_step(batch, lr=1e-5, step=TRAIN_STEPS + 1), reps)
+    busy = sum(kernels.values())
+    fams = _families(kernels, counts, reps)
+    losses = [float(m['loss']) for m in metrics]
+    row = {'phase': 'resnet_train', 'model': RESNET, 'size': RESNET_SIZE, 'dtype': 'bfloat16',
+           'batch': TRAIN_BATCH, 'steps': TRAIN_STEPS, 'optimizer': 'sgd (nesterov 0.9)',
+           'lr': RESNET_LR, 'weight_decay': RESNET_WD, 'losses': losses,
+           'grad_norms': [float(m['grad_norm']) for m in metrics],
+           'step_ms': step_ms, 'img_per_s': TRAIN_BATCH / step_ms * 1e3,
+           'graph_pool_bytes': task.train_graphs.pool_bytes(),
+           'captures': task.train_graphs.captures, 'replays': task.train_graphs.replays,
+           'sgd_launches': {'flash_attention': flash_attention.launches,
+                            'fused_adamw': fused_adamw.launches},
+           'replay_wall_ms_per_step': prof_wall_ms,
+           'replay_device_ms_per_step': busy if kernels else 'not measured',
+           'replay_idle_share': 1.0 - busy / prof_wall_ms if kernels else 'not measured',
+           'replay_ms_by_family': fams['ms'], 'replay_kernels_by_family': fams['kernels'],
+           'top_kernels': [{'kernel': k[:120], 'ms': v}
+                           for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]]}
+    sgd_launches = dict(row['sgd_launches'])
+    del task
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the 53 BatchNorm + ReLU and the convolutions alone, at the step's shapes
+    modules = _module_families(_resnet('cuda', torch.bfloat16, calibrate=False),
+                               batch['input'], ('batchnorm_act', 'other_conv'))
+    row['module_families_alone'] = modules
+    row['batchnorm_elements_per_image'] = modules['batchnorm_act']['input_elements'] / TRAIN_BATCH
+    row['family_alone_share_of_step_device_ms'] = (
+        {f: r['fwd_bwd_ms'] / busy for f, r in modules.items()} if kernels else 'not measured')
+
+    # one step's gradients on the card against the CPU: fp32 against fp32,
+    # and bf16 against fp32 beside the CPU's own bf16 (see RESNET_GRAD_TOL)
+    grad_batch = _train_batch(RESNET_GRAD_BATCH, 5, 'cpu', size=RESNET_SIZE)
+    grads = {}
+    for device, dtype in (('cuda', torch.bfloat16), ('cuda', None), ('cpu', None),
+                          ('cpu', torch.bfloat16)):
+        t = _train_task(0, device, dtype, 0.0, opt='sgd', nonfinite_guard=False,
+                        model_name=RESNET, weight_decay=RESNET_WD, lr=RESNET_LR)
+        t.train_step(grad_batch, lr=0.0, step=1)
+        grads[device, dtype] = t.optimizer.flat_grad.float().cpu()
+        del t
+    torch.cuda.empty_cache()
+
+    def grad_rel(a, b):
+        return float((grads[a] - grads[b]).norm() / grads[b].norm())
+    fp32 = ('cpu', None)
+    grad_errs = {'card_fp32_vs_cpu_fp32': grad_rel(('cuda', None), fp32),
+                 'card_bf16_vs_cpu_fp32': grad_rel(('cuda', torch.bfloat16), fp32),
+                 'cpu_bf16_vs_cpu_fp32': grad_rel(('cpu', torch.bfloat16), fp32),
+                 'card_bf16_vs_cpu_bf16': grad_rel(('cuda', torch.bfloat16),
+                                                   ('cpu', torch.bfloat16))}
+    grad_finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    del grads
+    row.update(grad_batch=RESNET_GRAD_BATCH, grad_rel_l2=grad_errs, grad_tol=RESNET_GRAD_TOL)
+
+    # the replayed step against its eager body with split BN (3 x 32)
+    n_split = RESNET_SPLITS * RESNET_SPLIT_BATCH
+    batches = [_train_batch(n_split, 60 + i, 'cuda', size=RESNET_SIZE) for i in range(2)]
+    nan_batch = dict(batches[0], input=batches[0]['input'].clone())
+    nan_batch['input'][5, 50, 50, 2] = float('nan')
+    split_row, task = _graph_vs_eager(
+        'sgd', 1, batches, nan_batch, False, model_name=RESNET, steps=RESNET_GRAPH_STEPS,
+        nan_step=RESNET_NAN_STEP, drop_path_rate=0.0, lr=RESNET_LR, weight_decay=RESNET_WD,
+        split_bn=RESNET_SPLITS)
+    split_row['running_stats_compared'] = len(_model_buffers(task))
+    split_row['aux_stats_compared'] = sum('.aux_bn.' in k for k in _model_buffers(task))
+    row['split_bn_graph_vs_eager'] = split_row
+    del task
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the AdamW arm, through fused_adamw
+    fused_adamw.launches = 0
+    task = _train_task(0, 'cuda', torch.bfloat16, 0.0, opt='adamw', model_name=RESNET)
+    adamw_steps = []
+    for step in range(5):
+        a0 = fused_adamw.launches
+        task.train_step(batch, lr=TRAIN_LR, step=step + 1)
+        adamw_steps.append(fused_adamw.launches - a0)
+    a_kernels, a_counts, _ = _profile_kernels(lambda: task.train_step(batch, lr=1e-5, step=6), 2)
+    row['adamw_arm'] = {'wrapper_fused_adamw_launches_per_step': adamw_steps,
+                        'replayed_kernels_per_step': _per_step(a_counts, 2) if a_kernels
+                        else 'not measured',
+                        'fused_adamw_replayed_ms': sum(v for k, v in a_kernels.items()
+                                                       if 'fused_adamw' in k)}
+    adamw_launches = fused_adamw.launches
+    del task
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # every optimizer name this slice adds
+    models = {'cpu': _damp_resnet(timm_tpu_torch.create_model(RESNET, device='cpu', seed=0)),
+              'train': _damp_resnet(timm_tpu_torch.create_model(
+                  RESNET, device='cuda', seed=0, dtype=torch.bfloat16))}
+    models['cuda'] = timm_tpu_torch.create_model(RESNET, device='cuda', seed=0)
+    models['cuda'].load_state_dict(models['cpu'].state_dict())
+    opt_batches = [_train_batch(RESNET_OPT_BATCH, 70 + i, 'cuda', size=RESNET_SIZE)
+                   for i in range(2)]
+    opt_nan = dict(opt_batches[0], input=opt_batches[0]['input'].clone())
+    opt_nan['input'][1, 50, 50, 2] = float('nan')
+    row['optimizer_arms'] = {}
+    for name in RESNET_NEW_OPTIMIZERS:
+        t_arm = time.perf_counter()
+        row['optimizer_arms'][name] = _optimizer_arm(name, models, opt_batches, opt_nan)
+        row['optimizer_arms'][name]['seconds'] = time.perf_counter() - t_arm
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    row['seconds'] = time.perf_counter() - t_phase
+    emit(row)
+    check(all(np.isfinite(losses)), f'resnet_train: non-finite loss in {losses}')
+    check(losses[-1] < losses[0], f'resnet_train: last loss {losses[-1]} not below {losses[0]}')
+    check(row['captures'] == 1, 'resnet_train: the step was not captured once')
+    check(sgd_launches == {'flash_attention': 0, 'fused_adamw': 0},
+          f'resnet_train: the SGD step launched {sgd_launches}')
+    check(grad_finite, 'resnet_train: non-finite gradients')
+    check(grad_errs['card_fp32_vs_cpu_fp32'] <= RESNET_GRAD_TOL,
+          f'resnet_train: fp32 gradient rel L2 {grad_errs["card_fp32_vs_cpu_fp32"]} > '
+          f'{RESNET_GRAD_TOL}')
+    check(grad_errs['card_bf16_vs_cpu_fp32'] <= max(
+        GRAD_REL_L2_TOL, RESNET_GRAD_BF16_SLACK * grad_errs['cpu_bf16_vs_cpu_fp32']),
+          f'resnet_train: bf16 gradients {grad_errs}')
+    check(split_row['running_stats_compared'] == 2 * RESNET_BATCHNORMS * RESNET_SPLITS
+          and split_row['aux_stats_compared'] == 2 * RESNET_BATCHNORMS * (RESNET_SPLITS - 1),
+          f'resnet_train: {split_row["running_stats_compared"]} statistics compared')
+    arms = [('split_bn', split_row)] + list(row['optimizer_arms'].items())
+    for arm, r in arms:
+        check(not r['buffers_that_differ'],
+              f'resnet_train ({arm}): replays differ from eager steps in {r["buffers_that_differ"]}')
+        check(not r['steps_whose_metrics_differ'],
+              f'resnet_train ({arm}): metrics differ at steps {r["steps_whose_metrics_differ"]}')
+        check(r['skipped_steps'] == [RESNET_NAN_STEP],
+              f'resnet_train ({arm}): the guard skipped steps {r["skipped_steps"]}')
+        check(r['captures'] == 1, f'resnet_train ({arm}): {r["captures"]} captures')
+    for name, r in row['optimizer_arms'].items():
+        check(r['card_vs_cpu_update_rel_l2'] <= RESNET_OPT_TOL,
+              f'resnet_train ({name}): card vs CPU update rel L2 '
+              f'{r["card_vs_cpu_update_rel_l2"]} > {RESNET_OPT_TOL}')
+    check(adamw_steps == [1, 1, 0, 0, 0],
+          f'resnet_train: fused_adamw wrapper launches per step {adamw_steps}')
+    check(bool(a_kernels) and row['adamw_arm']['replayed_kernels_per_step']['fused_adamw'] == 1,
+          f'resnet_train: a replayed AdamW step ran {row["adamw_arm"]["replayed_kernels_per_step"]}')
+    return {'fused_adamw': adamw_launches, 'flash_attention': 0}
+
+
+def phase_resnet_drivers():
+    """The train driver's main(argv) with timm's ResNet-50 JSD + RandAugment
+    recipe (RESNET_DRIVER_FLAGS: 3 AugMix splits, the JSD loss, split BN,
+    'pixel' erasing 0.6 on the host, cosine, lr 0.05, bf16) over the folder
+    of seeded PNGs phase input_train writes (576 train, 192 validation): 9
+    updates of 3 x 64 images; run A uninterrupted, run B stopped by SIGTERM
+    after update 4, run C resumed from it with --resume auto, C's last.npz
+    held to A's bit for bit (weights, EMA, momentum, primary and aux
+    statistics). Then ``validate`` on A's EMA weights (the plain model, the
+    aux statistics left out) within DRIVER_EVAL_REL_TOL of A's last EMA
+    evaluation; ``validate --test-pool --img-size 288``, which must report
+    the test-time pool head at crop 1.0; and ``inference`` at that size,
+    whose top-1 must agree with validate's at that size without the head.
+    The wrappers' counts are read around each run."""
+    import contextlib
+    import csv
+    import shutil
+    import tempfile
+
+    import torch
+
+    from timm_tpu_torch import inference, train, validate
+    from timm_tpu_torch.kernels import augment_epilogue, flash_attention, fused_adamw
+    kernels = (flash_attention, fused_adamw, augment_epilogue)
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_resnet_')
+    row = {'phase': 'resnet_drivers', 'model': RESNET, 'dtype': 'bfloat16',
+           'flags': ' '.join(RESNET_DRIVER_FLAGS), 'sigterm_at': RESNET_DRIVER_SIGTERM_AT,
+           'wall_s': {}, 'launches': {}}
+
+    def run(fn, argv):
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            result = fn(argv)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return result, time.perf_counter() - t0, {k.__name__: k.launches for k in kernels}
+
+    try:
+        data, out = os.path.join(tmp, 'data'), os.path.join(tmp, 'out')
+        n_train = _write_image_folder(os.path.join(data, 'train'), INPUT_IMAGES_PER_CLASS)
+        n_val = _write_image_folder(os.path.join(data, 'validation'), DRIVER_VALIDATION_PER_CLASS,
+                                    seed=1)
+        row.update(train_images=n_train, validation_images=n_val, updates=n_train // 64)
+
+        def train_argv(experiment, *extra):
+            return RESNET_DRIVER_FLAGS + ['--data-dir', data, '--output', out,
+                                          '--experiment', experiment, *extra]
+        for name, argv in (('a', train_argv('a')),
+                           ('b', train_argv('b', '--fault-inject',
+                                            f'sigterm@{RESNET_DRIVER_SIGTERM_AT}')),
+                           ('c', train_argv('b', '--resume', 'auto'))):
+            rc, wall, launches = run(train.main, argv)
+            row['wall_s'][name], row['launches'][name] = wall, launches
+            check(rc == 0, f'resnet_drivers: run {name.upper()} exited {rc}')
+            check(not any(launches.values()),
+                  f'resnet_drivers: run {name.upper()} wrapper launches {launches}')
+        with open(os.path.join(out, 'a', 'summary.csv')) as f:
+            rows = list(csv.DictReader(f))
+        ema_loss = float(rows[-1]['eval_loss_ema'])
+        row['final_ema_eval'] = {'loss': ema_loss, 'top1': float(rows[-1]['eval_top1_ema'])}
+        ckpt_a = _checkpoint_groups(os.path.join(out, 'a', 'last.npz'))
+        ckpt_c = _checkpoint_groups(os.path.join(out, 'b', 'last.npz'))
+        c_vs_a = _max_diff(ckpt_c, ckpt_a)
+        row['running_statistics_in_checkpoint'] = len(ckpt_a['model_state'])
+        row['optimizer_count'] = int(ckpt_a['optimizer']['optimizer.count'])
+        row['resumed_vs_uninterrupted'] = {g: {'tensors_differ': n, 'max_abs_diff': d}
+                                           for g, (n, d) in c_vs_a.items()}
+        del ckpt_a, ckpt_c
+        eval_argv = ['--model', RESNET, '--checkpoint', os.path.join(out, 'a', 'last.npz'),
+                     '--use-ema', '--amp', '-b', '64', '--workers', '6', '--data-dir', data]
+        val, wall, launches = run(lambda argv: validate.validate(validate.parser.parse_args(argv)),
+                                  eval_argv)
+        row['wall_s']['validate'], row['launches']['validate'] = wall, launches
+        row['validate'] = {'loss': val['loss'], 'top1': val['top1'], 'img_per_s': val['img_per_s'],
+                           'test_time_pool': val['test_time_pool']}
+        at_288 = eval_argv + ['--img-size', str(RESNET_POOL_SIZE)]
+        predictions = []
+        plain, wall, _ = run(lambda argv: validate.validate(validate.parser.parse_args(argv),
+                                                            predictions), at_288)
+        pooled, wall_p, _ = run(lambda argv: validate.validate(validate.parser.parse_args(argv)),
+                                at_288 + ['--test-pool'])
+        row['wall_s']['validate_test_pool'] = wall_p
+        row['validate_288'] = {'loss': plain['loss'], 'top1': plain['top1']}
+        row['validate_test_pool'] = {k: pooled[k] for k in ('loss', 'top1', 'crop_pct',
+                                                             'test_time_pool', 'img_size')}
+        rc_i, wall_i, _ = run(inference.main, at_288 + [
+            '--topk', '5', '--output-dir', os.path.join(tmp, 'inf')])
+        row['wall_s']['inference'] = wall_i
+        with open(os.path.join(tmp, 'inf', f'{RESNET}-results.csv')) as f:
+            inf_rows = list(csv.DictReader(f))
+        agree = sum(int(r['label_0']) == p[0] for r, p in zip(inf_rows, predictions))
+        row['inference_top1_agrees_with_validate_288'] = agree
+        check(row['optimizer_count'] == n_train // 64,
+              f'resnet_drivers: {row["optimizer_count"]} updates in run A')
+        check(row['running_statistics_in_checkpoint'] == 2 * RESNET_BATCHNORMS * 3,
+              f'resnet_drivers: {row["running_statistics_in_checkpoint"]} statistics in last.npz')
+        check(all(n == 0 for n, _ in c_vs_a.values()),
+              f'resnet_drivers: the resumed last.npz differs from the uninterrupted one: {c_vs_a}')
+        check(abs(val['loss'] - ema_loss) <= DRIVER_EVAL_REL_TOL * abs(ema_loss),
+              f'resnet_drivers: validate loss {val["loss"]} vs the EMA eval {ema_loss}')
+        check(not val['test_time_pool'] and pooled['test_time_pool'] and pooled['crop_pct'] == 1.0
+              and pooled['img_size'] == RESNET_POOL_SIZE,
+              f'resnet_drivers: --test-pool gave {row["validate_test_pool"]}')
+        check(rc_i == 0 and len(inf_rows) == n_val and agree == n_val == len(predictions),
+              f'resnet_drivers: inference exited {rc_i}, top-1 agrees on {agree} of {n_val}')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        emit(row)  # what was measured, also when a check failed
+    torch.cuda.empty_cache()
+    return {k.__name__: sum(r[k.__name__] for r in row['launches'].values()) for k in kernels}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3418,11 +3970,15 @@ def main() -> int:
         phase_effnet_model()
         phase_effnet_serve()
         effnet_train_launches = phase_effnet_train()
+        phase_resnet_model()
+        phase_resnet_serve()
+        resnet_train_launches = phase_resnet_train()
         input_launches = phase_input_train(train_step_ms)
         recipe_launches = phase_recipe_train()
         driver_launches = phase_drivers()
         convnext_driver_launches = phase_convnext_drivers()
         effnet_driver_launches = phase_effnet_drivers()
+        resnet_driver_launches = phase_resnet_drivers()
     except Exception:
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -3434,7 +3990,9 @@ def main() -> int:
                                     'muon_train': muon_launches['flash_attention'],
                                     'input_train': input_launches['flash_attention'],
                                     'recipe_train': recipe_launches['flash_attention'],
-                                    'drivers': driver_launches['flash_attention']},
+                                    'drivers': driver_launches['flash_attention'],
+                                    'resnet_train': resnet_train_launches['flash_attention'],
+                                    'resnet_drivers': resnet_driver_launches['flash_attention']},
                 'fused_adamw': {'train': train_launches['fused_adamw'],
                                 'input_train': input_launches['fused_adamw'],
                                 'recipe_train': recipe_launches['fused_adamw'],
@@ -3442,13 +4000,16 @@ def main() -> int:
                                 'convnext_train': convnext_train_launches['fused_adamw'],
                                 'convnext_drivers': convnext_driver_launches['fused_adamw'],
                                 'effnet_train': effnet_train_launches['fused_adamw'],
-                                'effnet_drivers': effnet_driver_launches['fused_adamw']},
+                                'effnet_drivers': effnet_driver_launches['fused_adamw'],
+                                'resnet_train': resnet_train_launches['fused_adamw'],
+                                'resnet_drivers': resnet_driver_launches['fused_adamw']},
                 'augment_epilogue': {'input_train': input_launches['augment_epilogue'],
                                      'recipe_train': recipe_launches['augment_epilogue'],
                                      'drivers': driver_launches['augment_epilogue'],
                                      'convnext_drivers':
                                          convnext_driver_launches['augment_epilogue'],
-                                     'effnet_drivers': effnet_driver_launches['augment_epilogue']}}
+                                     'effnet_drivers': effnet_driver_launches['augment_epilogue'],
+                                     'resnet_drivers': resnet_driver_launches['augment_epilogue']}}
     previous_rows = {'flash_attention': {r['case']: r for r in flash_checks['previous']},
                      'augment_epilogue': {r['case']: r for r in augment_rows}}
     lines = []

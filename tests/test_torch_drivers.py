@@ -324,10 +324,12 @@ def test_drivers_raise_for_unported_flags_and_without_a_card():
     import torch
 
     from timm_tpu_torch import inference, train, validate
-    for flag, item in (('--fsdp=2', 'A.5.11'), ('--split-bn', 'A.5.6'),
-                       ('--opt=lion', 'A.5.5'), ('--distill=teacher=x', 'A.5.10')):
+    for flag, item in (('--fsdp=2', 'A.5.11'), ('--naflex-loader', 'A.5.8'),
+                       ('--grad-checkpointing', 'A.5.7'), ('--distill=teacher=x', 'A.5.10')):
         with pytest.raises(NotImplementedError, match=item):
             train.main(COMMON + [flag])
+    with pytest.raises(ValueError, match='aug-splits'):  # split BN needs the splits
+        train.main(COMMON + ['--split-bn'])
     with pytest.raises(ValueError, match='aug-splits'):
         train.main(COMMON + ['--device-augment', '--aug-splits', '3'])
     with pytest.raises(NotImplementedError, match='A.5.4'):

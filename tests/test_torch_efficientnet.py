@@ -403,8 +403,8 @@ def test_squeeze_excite_matches_jax(jx, name, dtype):
                                atol=1e-5 if dtype == 'float32' else 2e-2, rtol=0)
     with pytest.raises(NotImplementedError, match='A.5.9'):
         get_attn('gc')
-    with pytest.raises(NotImplementedError, match='A.5.6'):
-        get_attn('eca')
+    from timm_tpu_torch.layers import EcaModule
+    assert get_attn('eca') is EcaModule  # ported with the ResNet step
 
 
 _ACTS = ['relu', 'relu6', 'silu', 'swish', 'sigmoid', 'tanh', 'hard_sigmoid', 'hard_swish',

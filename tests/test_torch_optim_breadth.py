@@ -404,7 +404,9 @@ def test_converter_names_what_it_cannot_place(jx):
 
 def test_factory_plumbing_and_what_still_raises():
     """'muon' takes momentum as its beta and ignores eps and betas, as the
-    JAX factory; the names still queued raise citing ROADMAP A.5.5."""
+    JAX factory; no name of the JAX registry is queued any more (they build
+    as the JAX factory's plumbing says: 'adan' takes three betas, 'lion' no
+    eps, 'adafactor' an eps it never uses), and an unknown name raises."""
     tm = timm_tpu_torch.create_model('test_vit', img_size=32, num_classes=5, device='cpu')
     opt = create_optimizer_v2(tm, opt='muon', momentum=0.9, eps=1e-3, betas=(0.5, 0.6),
                               mu_dtype='bfloat16')
@@ -415,9 +417,15 @@ def test_factory_plumbing_and_what_still_raises():
         assert (other.beta, other.weight_decay) == (0.9, WD)
     opt = create_optimizer_v2(tm, opt='mars', betas=(0.8, 0.9), mars_type='lion', gamma=0.1)
     assert (opt.b1, opt.b2, opt.mars_type, opt.gamma) == (0.8, 0.9, 'lion', 0.1)
-    for name in ('lion', 'adafactor', 'lookahead_lion', 'adam'):
-        with pytest.raises(NotImplementedError, match='ROADMAP A.5.5'):
-            create_optimizer_v2(tm, opt=name)
+    from timm_tpu_torch.optim import SGD, Adafactor, Adam, Adan, Lion
+    assert isinstance(create_optimizer_v2(tm, opt='adam'), Adam)
+    opt = create_optimizer_v2(tm, opt='adan', betas=(0.9, 0.8, 0.7), eps=1e-6)
+    assert isinstance(opt, Adan) and (opt.b1, opt.b2, opt.b3, opt.eps) == (0.9, 0.8, 0.7, 1e-6)
+    opt = create_optimizer_v2(tm, opt='lookahead_lion', eps=1e-3, betas=(0.8, 0.9))
+    assert isinstance(opt, Lion) and opt.slow is not None and (opt.b1, opt.b2) == (0.8, 0.9)
+    assert isinstance(create_optimizer_v2(tm, opt='adafactor', eps=1e-3), Adafactor)
+    opt = create_optimizer_v2(tm, opt='lookahead', momentum=0.5)
+    assert isinstance(opt, SGD) and opt.trace is None and opt.slow is None
     with pytest.raises(ValueError, match='not found'):
         create_optimizer_v2(tm, opt='nosuchopt')
 

@@ -357,6 +357,12 @@ def _register():
                        desc="EfficientNetV2-S's leaf set and decay mask (452 leaves, "
                             "21,458,488 parameters, 171 conv and linear weights decayed: "
                             "21,268,424), its train step's update"),
+            KernelCase(name='resnet50',
+                       dry=mixed, live=dict(model='resnet50'),
+                       statics=dict(weight_decay=0.05),
+                       desc="ResNet-50's leaf set and decay mask (161 leaves, 25,557,032 "
+                            "parameters, 54 conv and linear weights decayed), its train "
+                            "step's update"),
         ),
     ))
 

@@ -1,4 +1,5 @@
 from .attention import Attention, maybe_add_mask, scaled_dot_product_attention
+from .blur_pool import AvgPool2dAA, BlurPool2d
 from .classifier import ClassifierHead, NormMlpClassifierHead, create_classifier
 from .config import softmax_with_policy
 from .cond_conv2d import CondConv2d
@@ -8,6 +9,7 @@ from .create_conv2d import (
     Conv2d, ConvNormAct, SeparableConvNormAct, create_conv2d, get_aa_layer, get_padding,
 )
 from .create_norm import create_norm_layer, get_norm_layer
+from .eca import CecaModule, EcaModule
 from .drop import (
     DropPath, Dropout, apply_keep_mask, calculate_drop_path_rates, drop_path, dropout,
     get_drop_generator, set_drop_generator,
@@ -27,5 +29,7 @@ from .norm_act import (
 )
 from .patch_embed import PatchEmbed
 from .pool import SelectAdaptivePool2d, adaptive_pool_feat_mult, global_pool_nlc
+from .split_batchnorm import SplitBatchNorm2d, SplitBatchNormAct2d, convert_splitbn_model
 from .squeeze_excite import EffectiveSEModule, SEModule, SqueezeExcite
+from .test_time_pool import TestTimePoolHead, apply_test_time_pool
 from .weight_init import lecun_normal_, trunc_normal_, variance_scaling_

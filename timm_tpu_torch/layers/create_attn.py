@@ -1,22 +1,20 @@
 """Attention-module factory (counterpart of timm_tpu/layers/create_attn.py):
-the JAX package's names; those whose modules are not ported raise."""
+the JAX package's names; 'se', 'ese', 'eca' and 'ceca' are ported, the
+others raise citing the ROADMAP item that ports them."""
 from __future__ import annotations
 
 from typing import Callable, Union
 
+from .eca import CecaModule, EcaModule
 from .squeeze_excite import EffectiveSEModule, SEModule
 
 __all__ = ['create_attn', 'get_attn']
 
-_ATTN_MAP = dict(se=SEModule, ese=EffectiveSEModule)
+_ATTN_MAP = dict(se=SEModule, ese=EffectiveSEModule, eca=EcaModule, ceca=CecaModule)
 # the JAX package's other names, by the ROADMAP item that ports them
-_NOT_PORTED = {
-    'eca': 'A.5.6, the ResNet step, with eca.py',
-    'ceca': 'A.5.6, the ResNet step, with eca.py',
-    **{name: 'A.5.9, with the rest of the zoo' for name in (
-        'bottleneck', 'halo', 'cbam', 'lcbam', 'ge', 'gc', 'gca', 'nl', 'bat', 'sk', 'splat',
-        'lambda')},
-}
+_NOT_PORTED = {name: 'A.5.9, with the rest of the zoo' for name in (
+    'bottleneck', 'halo', 'cbam', 'lcbam', 'ge', 'gc', 'gca', 'nl', 'bat', 'sk', 'splat',
+    'lambda')}
 
 
 def get_attn(attn_type: Union[str, Callable, None]):

@@ -17,8 +17,8 @@ stride > 1 on even inputs, so an explicit ``F.pad``), ``'valid'`` none.
 ``create_conv2d`` dispatches as JAX's: a list ``kernel_size`` builds a
 ``MixedConv2d``, ``num_experts > 0`` a ``CondConv2d``, anything else a
 ``Conv2d``. ``ConvNormAct`` and ``SeparableConvNormAct`` are the conv + norm
-+ act composites (``norm_act.py``); anti-aliased downsampling (blur pool)
-is not ported (ROADMAP A.5.9) and raises.
++ act composites (``norm_act.py``); ``ConvNormAct``'s ``aa_layer`` (blur or
+average pool, ``blur_pool.py``) takes the stride after the norm, as JAX's.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .blur_pool import get_aa_layer
 from .helpers import to_2tuple
 from .linear import compute_dtype
 from .weight_init import variance_scaling_
@@ -111,15 +112,6 @@ class Conv2d(nn.Module):
                 f'stride={self.stride}, padding={self.padding}, groups={self.groups}')
 
 
-def get_aa_layer(aa_layer=None):
-    """The anti-aliasing layer of a name or class: only None is ported; blur
-    pool (``'blur'``, ``'blurpc'``, ...) comes with the rest of the zoo."""
-    if aa_layer is None:
-        return None
-    raise NotImplementedError(f'anti-aliasing layer {aa_layer!r} (blur pool) is not ported yet '
-                              '(ROADMAP A.5.9, with the rest of the zoo)')
-
-
 def create_conv2d(
         in_channels: int,
         out_channels: int,
@@ -159,7 +151,8 @@ def create_conv2d(
 
 class ConvNormAct(nn.Module):
     """conv -> (drop) -> norm + act (``BatchNormAct2d`` unless
-    ``norm_layer``), or conv -> act without a norm."""
+    ``norm_layer``), or conv -> act without a norm; then the anti-aliasing
+    pool, which takes the stride when ``aa_layer`` is given."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size=1, stride: int = 1,
                  padding='', dilation: int = 1, groups: int = 1, bias: bool = False,
@@ -170,9 +163,10 @@ class ConvNormAct(nn.Module):
         super().__init__()
         from .create_act import get_act_fn
         from .norm_act import BatchNormAct2d
-        if aa_layer is not None and to_2tuple(stride)[0] > 1:
-            get_aa_layer(aa_layer)
-        self.conv = create_conv2d(in_channels, out_channels, kernel_size, stride=stride,
+        aa_layer = get_aa_layer(aa_layer)
+        use_aa = aa_layer is not None and to_2tuple(stride)[0] > 1
+        self.conv = create_conv2d(in_channels, out_channels, kernel_size,
+                                  stride=1 if use_aa else stride,
                                   padding=padding, dilation=dilation, groups=groups, bias=bias,
                                   dtype=dtype, generator=generator)
         if apply_norm:
@@ -183,6 +177,7 @@ class ConvNormAct(nn.Module):
         else:
             self.bn = get_act_fn(act_layer) if apply_act else None
             self.drop = drop_layer() if drop_layer is not None else None
+        self.aa = aa_layer(out_channels, stride=stride) if use_aa else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
@@ -190,6 +185,8 @@ class ConvNormAct(nn.Module):
             x = self.drop(x)
         if self.bn is not None:
             x = self.bn(x)
+        if self.aa is not None:
+            x = self.aa(x)
         return x
 
 

@@ -9,5 +9,6 @@ from ._registry import (
     register_model, split_model_name_tag,
 )
 from .convnext import ConvNeXt
+from .resnet import ResNet
 from .efficientnet import EfficientNet
 from .vision_transformer import Block, VisionTransformer

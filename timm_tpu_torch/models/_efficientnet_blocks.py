@@ -29,6 +29,13 @@ def num_groups(group_size: Optional[int], channels: int) -> int:
     return channels // group_size
 
 
+def _no_aa(aa_layer) -> None:
+    """Anti-aliased strides in these blocks come with the rest of the zoo."""
+    if get_aa_layer(aa_layer) is not None:
+        raise NotImplementedError(f'anti-aliasing ({aa_layer!r}) in the EfficientNet blocks is '
+                                  'not ported yet (ROADMAP A.5.9, with the rest of the zoo)')
+
+
 def _out_chs(conv: nn.Module) -> int:
     return conv.out_channels
 
@@ -41,7 +48,7 @@ class ConvBnAct(nn.Module):
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        get_aa_layer(aa_layer)  # blur pool raises (ROADMAP A.5.9)
+        _no_aa(aa_layer)
         self.has_skip = skip and stride == 1 and in_chs == out_chs
         self.conv = create_conv2d(in_chs, out_chs, kernel_size, stride=stride, dilation=dilation,
                                   groups=num_groups(group_size, in_chs), padding=pad_type or None,
@@ -94,7 +101,7 @@ class DepthwiseSeparableConv(_S2dMixin, nn.Module):
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        get_aa_layer(aa_layer)  # blur pool raises (ROADMAP A.5.9)
+        _no_aa(aa_layer)
         self.has_skip = (stride == 1 and in_chs == out_chs) and not noskip
         self.has_pw_act = pw_act
         in_chs, dw_kernel_size, dw_pad_type = self._init_s2d(
@@ -137,7 +144,7 @@ class InvertedResidual(_S2dMixin, nn.Module):
                  drop_path_rate: float = 0.0, dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        get_aa_layer(aa_layer)  # blur pool raises (ROADMAP A.5.9)
+        _no_aa(aa_layer)
         conv_kwargs = dict(conv_kwargs or {}, dtype=dtype, generator=generator)
         self.has_skip = (in_chs == out_chs and stride == 1) and not noskip
         in_chs, dw_kernel_size, dw_pad_type = self._init_s2d(
@@ -210,7 +217,7 @@ class EdgeResidual(nn.Module):
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        get_aa_layer(aa_layer)  # blur pool raises (ROADMAP A.5.9)
+        _no_aa(aa_layer)
         mid_chs = make_divisible((force_in_chs if force_in_chs > 0 else in_chs) * exp_ratio)
         self.has_skip = (in_chs == out_chs and stride == 1) and not noskip
         self.conv_exp = create_conv2d(in_chs, mid_chs, exp_kernel_size, stride=stride,

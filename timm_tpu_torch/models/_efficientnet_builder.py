@@ -23,7 +23,7 @@ from torch import nn
 from ..layers import BatchNormAct2d, SqueezeExcite, get_aa_layer, make_divisible
 from ._efficientnet_blocks import (
     CondConvResidual, ConvBnAct, DepthwiseSeparableConv, EdgeResidual, InvertedResidual,
-    MobileAttention, UniversalInvertedResidual,
+    MobileAttention, UniversalInvertedResidual, _no_aa,
 )
 
 __all__ = ['BN_EPS_TF_DEFAULT', 'BN_MOMENTUM_TF_DEFAULT', 'EfficientNetBuilder', 'decode_arch_def',
@@ -210,6 +210,7 @@ class EfficientNetBuilder:
         self.se_from_exp = se_from_exp
         self.act_layer = act_layer
         self.norm_layer = norm_layer
+        _no_aa(aa_layer)  # the blocks' anti-aliased strides are not ported
         self.aa_layer = get_aa_layer(aa_layer)
         self.se_layer = se_layer
         se_base = se_layer.func if isinstance(se_layer, partial) else se_layer

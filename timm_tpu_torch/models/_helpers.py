@@ -113,8 +113,12 @@ def load_checkpoint(
 ):
     """Load the weights of ``checkpoint_path`` into ``model`` (copied onto
     its parameters' device and dtype); ``strict`` as in
-    ``nn.Module.load_state_dict``."""
+    ``nn.Module.load_state_dict``. A ``--split-bn`` run's aux layers
+    (``.aux_bn.``) are left out when ``model`` has none: they hold training
+    state of the other splits, which a plain model has no place for."""
     state_dict = load_state_dict(checkpoint_path, use_ema=use_ema)
+    if not any('.aux_bn.' in k for k in model.state_dict()):
+        state_dict = {k: v for k, v in state_dict.items() if '.aux_bn.' not in k}
     result = model.load_state_dict(
         {k: torch.from_numpy(np.array(v)) for k, v in state_dict.items()}, strict=strict)
     if result.missing_keys:

@@ -5,6 +5,7 @@ Weights: the flat ``{dotted.path: np.ndarray}`` dict that
 .safetensors form). The rules invert timm_tpu/models/_torch_convert.py:
 
   .kernel (I, O)          -> .weight (O, I)        [transpose]
+  .kernel (W, I, O)       -> .weight (O, I, W)     [1-d conv, ECA's]
   .kernel (H, W, I, O)    -> .weight (O, I, H, W)  [conv HWIO -> OIHW]
   .scale                  -> .weight               [norm affine]
   .mean / .var            -> .running_mean / .running_var  [BatchNorm statistics]
@@ -27,15 +28,24 @@ Task checkpoints (``convert_jax_checkpoint``): the single flat dict of
 
 where <i...> is chain indices and Muon's partitions
 (``inner_states.muon|adam.inner_state``), and <slot> is one of mu, nu,
-trace (AdamW, NAdamW, LAMB, Muon, SGD), grad_sum_sq, s, x0 (MADGRAD),
-exp_avg, exp_avg_sq (LaProp, MARS) and last_grad (MARS), with the moments
-transposed as their parameters are. Muon's ``ns_coeffs`` must be optax's
+trace (the Adam family, LAMB, Lion, Muon, NovoGrad, RMSprop, the SGDs,
+LARS, SM3), grad_sum_sq, s, x0 (MADGRAD), exp_avg, exp_avg_sq (LaProp,
+MARS), last_grad (MARS), m, v, n, g (Adan, whose ``t`` is its count), e_g,
+e_x (Adadelta), sum_of_squares (Adagrad) and v_row, v_col, v (Adafactor),
+with the moments transposed as their parameters are. Three kinds of state
+keep their JAX layout and are only renamed: Adafactor's (a checkpoint with
+``v_row`` keys), whose factored moments the port builds on the JAX dims;
+SM3's per-dim accumulators ``mu.<path>.<dim>``; and a kernel's per-leaf
+scalar or vector (NovoGrad's ``nu``). Muon's ``ns_coeffs`` must be optax's
 constants. Lookahead's state ``(inner, slow, count)`` maps its inner state
 as above, ``inner_state.1.<path>`` to ``optimizer.slow.<port path>`` and its
 count must agree; with layer decay the whole state sits under
 ``optimizer.0.`` (the scale transform keeps none). ``epoch``, ``metric`` and
-``_resume.*`` carry over. Any other key raises and names itself: no key is
-skipped.
+``_resume.*`` carry over. A ``model_state.`` key with a component that
+starts with an underscore is a constant the JAX module keeps in a variable
+(blur pool's filter ``_kernel``), which ``model_state_dict`` leaves out of
+the weights too: the port's module makes its own, so it is dropped. Any other
+key raises and names itself: no other key is skipped.
 """
 from __future__ import annotations
 
@@ -54,7 +64,9 @@ __all__ = ['convert_jax_checkpoint', 'convert_jax_state_dict', 'is_jax_checkpoin
 # an optax inner state key: chain indices and Muon's partitions, then a field
 _INNER_RE = re.compile(r'^(?:\d+\.|inner_states\.(?:muon|adam)\.inner_state\.)*(.+)$')
 _SLOT_RE = re.compile(
-    r'^(mu|nu|trace|grad_sum_sq|s|x0|exp_avg|exp_avg_sq|last_grad)\.(.+)$')
+    r'^(mu|nu|trace|grad_sum_sq|s|x0|exp_avg|exp_avg_sq|last_grad|m|v|n|g|e_g|e_x|'
+    r'sum_of_squares|v_row|v_col)\.(.+)$')
+_JAX_LAYOUT_SLOTS = ('v_row', 'v_col', 'v')  # Adafactor's
 _SCALAR_SLOTS = ('exp_avg_lr_1', 'exp_avg_lr_2')
 _WEIGHT_PREFIXES = ('state_dict.', 'state_dict_ema.', 'model_state.')
 
@@ -70,12 +82,17 @@ def _as_numpy(a) -> np.ndarray:
     return a
 
 
-def _convert_leaf(key: str, value) -> Tuple[str, np.ndarray]:
+def _convert_leaf(key: str, value, transpose: bool = True) -> Tuple[str, np.ndarray]:
     value = _as_numpy(value)
     base, dot, leaf = key.rpartition('.')
+    if leaf.isdigit():  # SM3's accumulator of one dim of the JAX layout
+        key, _ = _convert_leaf(base, np.zeros(()), transpose=False)
+        return f'{key}.{leaf}', np.ascontiguousarray(value) if value.ndim else value.copy()
     if leaf == 'kernel':
-        if value.ndim == 2:
-            value = value.T
+        if not transpose or value.ndim < 2:
+            pass
+        elif value.ndim in (2, 3):
+            value = value.transpose(tuple(range(value.ndim))[::-1])
         elif value.ndim == 4:
             value = value.transpose(3, 2, 0, 1)
         else:
@@ -85,7 +102,7 @@ def _convert_leaf(key: str, value) -> Tuple[str, np.ndarray]:
         key = base + dot + 'weight'
     elif leaf in ('mean', 'var'):
         key = base + dot + 'running_' + leaf
-    return key, np.ascontiguousarray(value)
+    return key, np.ascontiguousarray(value) if value.ndim else value.copy()
 
 
 def is_jax_checkpoint(flat: Mapping[str, np.ndarray]) -> bool:
@@ -117,12 +134,13 @@ def convert_jax_checkpoint(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarr
         out[key] = value
 
     layer_decay = any(k.startswith('optimizer.0.') for k in flat)
+    adafactor = any('.v_row.' in k for k in flat if k.startswith('optimizer.'))
     lookahead = any(_optimizer_key(k, layer_decay) == 'optimizer.inner_state.2' for k in flat)
 
     def put_inner(key, rest, value):
         """An optax inner state entry, ``rest`` after its ``inner_state.``."""
         field = _INNER_RE.match(rest).group(1)
-        if field in ('count', 'step'):
+        if field in ('count', 'step', 't'):
             inner_counts.append((key, int(np.asarray(value))))
         elif field == 'ns_coeffs':
             if not np.array_equal(np.asarray(value, np.float32), np.float32(NS_COEFFS)):
@@ -132,7 +150,8 @@ def convert_jax_checkpoint(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarr
             put(f'optimizer.{field}', np.asarray(value, np.float32))
         elif _SLOT_RE.match(field):
             slot, path = _SLOT_RE.match(field).groups()
-            path, value = _convert_leaf(path, value)
+            path, value = _convert_leaf(path, value,
+                                        transpose=not (adafactor and slot in _JAX_LAYOUT_SLOTS))
             put(f'optimizer.{slot}.{path}', value)
         else:
             raise ValueError(f'{key}: no rule maps this JAX checkpoint entry into the port')
@@ -141,6 +160,8 @@ def convert_jax_checkpoint(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarr
         okey = _optimizer_key(key, layer_decay)
         if key in ('epoch', 'metric') or key.startswith('_resume.'):
             put(key, np.asarray(value))
+        elif key.startswith('model_state.') and any(p.startswith('_') for p in key.split('.')):
+            continue  # a module's constant, not state
         elif key.startswith(_WEIGHT_PREFIXES):
             prefix, _, path = key.partition('.')
             path, value = _convert_leaf(path, value)

@@ -57,7 +57,9 @@ from ..kernels.fused_adamw import _consts, fused_adamw
 from ..utils.serialization import to_numpy
 
 __all__ = ['AdamW', 'SGD', 'NAdamW', 'Lamb', 'Muon', 'Madgrad', 'Laprop', 'Mars',
-           'NS_COEFFS', 'NS_STEPS', 'orthogonalize_via_newton_schulz']
+           'Adam', 'AdamP', 'RAdam', 'Adamax', 'AdaBelief', 'Yogi', 'Adopt', 'Lion', 'Lars', 'Adan',
+           'NovoGrad', 'RMSprop', 'SGDW', 'Adadelta', 'Adagrad', 'Adafactor', 'SM3',
+           'NS_COEFFS', 'NS_STEPS', 'factored_dims', 'orthogonalize_via_newton_schulz']
 
 _ALIGN = 4  # elements: every leaf starts on a 16-byte boundary
 LOOKAHEAD_SYNC_PERIOD, LOOKAHEAD_SLOW_STEP = 6, 0.5
@@ -156,8 +158,16 @@ class _FlatOptimizer:
         return per_leaf.index_select(0, ids)
 
     def _leaf_norms(self, flat: torch.Tensor, ord: float = 2) -> torch.Tensor:
-        """(L,) fp32 norms of each leaf of ``flat`` (its padding is zero)."""
-        return torch.stack(torch._foreach_norm(self._leaf_views(flat), ord))
+        """(L,) fp32 norms of each leaf of ``flat`` (its padding is zero).
+        On the CPU the 2-norms are sqrt(sum(x^2)) leaf by leaf: torch's CPU
+        norm kernels sum long leaves with a relative error that grows as
+        sqrt(n) (3.7e-5 over ResNet-50's 2.36M-element conv), where its
+        ``sum`` stays within 1e-7; on the card ``_foreach_norm``'s tree
+        reduction is as exact and is one launch."""
+        views = self._leaf_views(flat)
+        if flat.device.type == 'cpu' and ord == 2:
+            return torch.stack([torch.sqrt(torch.sum(v * v)) for v in views])
+        return torch.stack(torch._foreach_norm(views, ord))
 
     def _add_decay(self, u: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
         """optax's ``add_decayed_weights(weight_decay, mask)``: u + wd * p on
@@ -258,11 +268,20 @@ class _FlatOptimizer:
         optimizer says otherwise."""
         return [name for name, _ in self._params]
 
+    def leaf_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """State outside the flat layout, {slot: {key: tensor}}: tensors of
+        their own shapes (Adafactor's factored moments and SM3's accumulators
+        in the JAX layout's dims, NovoGrad's per-leaf scalars), each under
+        ``<slot>.<key>`` in ``state_arrays``."""
+        return {}
+
     def state_keys(self) -> List[str]:
         """The keys ``state_arrays`` returns, without copying state."""
         keys = ['count', 'learning_rate']
         for slot, buf in self.slots().items():
             keys += [slot] if buf.ndim == 0 else [f'{slot}.{n}' for n in self._cover(slot)]
+        for slot, tensors in self.leaf_state().items():
+            keys += [f'{slot}.{k}' for k in tensors]
         return keys
 
     def host_views(self, flat: torch.Tensor, names: Optional[Sequence[str]] = None
@@ -312,6 +331,8 @@ class _FlatOptimizer:
             else:
                 out.update({f'{slot}.{k}': v
                             for k, v in self.host_views(buf, self._cover(slot)).items()})
+        for slot, tensors in self.leaf_state().items():
+            out.update({f'{slot}.{k}': to_numpy(t).astype(np.float32) for k, t in tensors.items()})
         return out
 
     def load_state_arrays(self, state: Mapping[str, np.ndarray], strict: bool = True) -> None:
@@ -330,6 +351,20 @@ class _FlatOptimizer:
             sub = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
             known.update(prefix + k for k in sub)
             self.load_views(buf, sub, 'optimizer.' + slot, strict=strict, names=self._cover(slot))
+        for slot, tensors in self.leaf_state().items():
+            for k, t in tensors.items():
+                key = f'{slot}.{k}'
+                if key not in state:
+                    if strict:
+                        raise KeyError(f'Missing checkpoint keys: [optimizer.{key}]')
+                    continue
+                value = np.asarray(state[key])
+                if tuple(value.shape) != tuple(t.shape):
+                    raise ValueError(f'optimizer.{key}: checkpoint shape {tuple(value.shape)}, '
+                                     f'state shape {tuple(t.shape)}')
+                known.add(key)
+                with torch.no_grad():
+                    t.copy_(torch.from_numpy(np.array(value, np.float32)).to(t.device, t.dtype))
         unknown = sorted(set(state) - known)
         if strict and (unknown or 'count' not in state):
             raise KeyError(f'optimizer state: unknown keys {unknown[:5]}'
@@ -684,3 +719,523 @@ class Mars(_FlatOptimizer):
             parts = [tuple(torch.where(md, a, b) for a, b in zip(*parts))]
         u, ea_new, eas_new = parts[0]
         return u, [(self.exp_avg, ea_new), (self.exp_avg_sq, eas_new), (self.last_grad, g)]
+
+
+# ---- the rest of the JAX registry ---------------------------------------------------------
+#
+# Each class below is an optax chain as the JAX factory builds it, in plain
+# PyTorch on the flat buffers. A name whose JAX factory has no weight-decay
+# argument (adam, nadam, radam, adamax, adabelief, adagrad, rmsprop, yogi,
+# sm3, adopt, 'momentum', 'lookahead') takes the JAX factory's coupled L2
+# first: its builder passes that L2 as ``weight_decay`` and the class adds
+# it to the gradient (``_add_decay``) before the inner transform, as the
+# existing SGD does. Branches on the step count (RAdam's rho test, ADOPT's
+# first step, NovoGrad's first step, Adafactor's decay) are ``torch.where``
+# on device scalars, so a captured step replays them; nothing is read back
+# to the host.
+
+def _t(opt: _FlatOptimizer) -> torch.Tensor:
+    """optax's ``count_inc``: the step being taken, fp32 on the device."""
+    return (opt.count + 1).to(torch.float32)
+
+
+def _bias_correction(moment: torch.Tensor, decay: float, t: torch.Tensor) -> torch.Tensor:
+    """optax's ``tree_bias_correction``: moment / (1 - decay ** t)."""
+    return moment / (1 - torch.pow(decay, t))
+
+
+class Adam(AdamW):
+    """optax's ``adam`` (``nadam`` with ``nesterov``) behind the JAX factory's
+    coupled L2: ``add_decayed_weights(l2, mask) -> scale_by_adam ->
+    scale_by_learning_rate``; 'adamp' is ``AdamP`` below."""
+
+    @property
+    def fused(self) -> bool:
+        return False
+
+    def _update(self, g, p):
+        g = self._add_decay(g, p)
+        u, m_new, v_new = _scale_by_adam(g, self.m, self.v, self.count, self.b1, self.b2,
+                                         self.eps, self.nesterov)
+        return _neg_lr(self, u), [(self.m, m_new.to(self.m.dtype)), (self.v, v_new)]
+
+
+class AdamP(AdamW):
+    """'adamp' of the JAX registry, which is optax's ``adamw`` (no real
+    AdamP): the plain chain, never the fused kernel, as JAX marks only
+    'adamw' fused."""
+
+    @property
+    def fused(self) -> bool:
+        return False
+
+
+class RAdam(_FlatOptimizer):
+    """optax's ``radam``: Adam's moments, and below the variance threshold
+    (rho < ``threshold``) the bias-corrected first moment alone; coupled L2
+    first."""
+
+    def __init__(self, named_params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
+                 threshold: float = 5.0, weight_decay: float = 0.0, wd_mask=None, **wrap):
+        super().__init__(named_params, lr, weight_decay, wd_mask, **wrap)
+        self.b1, self.b2 = (float(b) for b in betas)
+        self.eps, self.threshold = float(eps), float(threshold)
+        self.m = torch.zeros_like(self.flat_param)
+        self.v = torch.zeros_like(self.flat_param)
+
+    def slots(self):
+        return dict(mu=self.m, nu=self.v, **super().slots())
+
+    def _update(self, g, p):
+        g = self._add_decay(g, p)
+        b1, b2, t = self.b1, self.b2, _t(self)
+        m = (1 - b1) * g + b1 * self.m
+        v = (1 - b2) * (g * g) + b2 * self.v
+        ro_inf = 2.0 / (1.0 - b2) - 1.0
+        b2t = torch.pow(b2, t)
+        ro = ro_inf - 2 * t * b2t / (1 - b2t)
+        mu_hat = _bias_correction(m, b1, t)
+        nu_hat = _bias_correction(v, b2, t)
+        r = torch.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
+        u = torch.where(ro >= self.threshold, r * mu_hat / (torch.sqrt(nu_hat) + self.eps), mu_hat)
+        return _neg_lr(self, u), [(self.m, m), (self.v, v)]
+
+
+class Adamax(RAdam):
+    """optax's ``adamax``: the infinity-norm second moment
+    max(|g| + eps, b2 * nu), no bias correction on it; coupled L2 first."""
+
+    def _update(self, g, p):
+        g = self._add_decay(g, p)
+        b1, t = self.b1, _t(self)
+        m = (1 - b1) * g + b1 * self.m
+        v = torch.maximum(torch.abs(g) + self.eps, self.b2 * self.v)
+        return _neg_lr(self, _bias_correction(m, b1, t) / v), [(self.m, m), (self.v, v)]
+
+
+class AdaBelief(RAdam):
+    """optax's ``adabelief``: the second moment of g - m (+ eps_root), Adam's
+    bias corrections; coupled L2 first."""
+
+    def __init__(self, named_params, eps: float = 1e-16, eps_root: float = 1e-16, **kw):
+        super().__init__(named_params, eps=eps, **kw)
+        self.eps_root = float(eps_root)
+
+    def _update(self, g, p):
+        g = self._add_decay(g, p)
+        b1, b2, t = self.b1, self.b2, _t(self)
+        m = (1 - b1) * g + b1 * self.m
+        err = g - m
+        v = (1 - b2) * (err * err) + b2 * self.v + self.eps_root
+        u = _bias_correction(m, b1, t) / (torch.sqrt(_bias_correction(v, b2, t)) + self.eps)
+        return _neg_lr(self, u), [(self.m, m), (self.v, v)]
+
+
+class Yogi(RAdam):
+    """optax's ``yogi``: nu <- nu - (1 - b2) sign(nu - g^2) g^2, both
+    moments starting at 1e-6 (optax's ``initial_accumulator_value``), eps
+    1e-3; coupled L2 first."""
+
+    def __init__(self, named_params, eps: float = 1e-3, **kw):
+        super().__init__(named_params, eps=eps, **kw)
+        self.m.fill_(1e-6)
+        self.v.fill_(1e-6)
+
+    def _update(self, g, p):
+        g = self._add_decay(g, p)
+        b1, b2, t = self.b1, self.b2, _t(self)
+        m = (1 - b1) * g + b1 * self.m
+        g2 = g * g
+        v = self.v - (1 - b2) * torch.sign(self.v - g2) * g2
+        u = _bias_correction(m, b1, t) / (torch.sqrt(_bias_correction(v, b2, t)) + self.eps)
+        return _neg_lr(self, u), [(self.m, m), (self.v, v)]
+
+
+class Adopt(AdamW):
+    """optax.contrib's ``adopt``: the gradient normalized by the previous
+    second moment and clipped to step ** 0.25, then momentum; at step 0
+    only the second moment starts (b2 and b1 switched to 0 and 1 on the
+    device); coupled L2 first."""
+
+    def __init__(self, named_params, eps: float = 1e-6, betas=(0.9, 0.9999), **kw):
+        super().__init__(named_params, eps=eps, betas=betas, **kw)
+
+    @property
+    def fused(self) -> bool:
+        return False
+
+    def _update(self, g, p):
+        g = self._add_decay(g, p)
+        first = self.count > 0
+        b2 = torch.where(first, self.b2, 0.0)
+        b1 = torch.where(first, self.b1, 1.0)
+        v = (1 - b2) * (g * g) + b2 * self.v
+        clip = torch.pow(self.count.to(torch.float32), 0.25)
+        mu_updates = torch.clamp(g / torch.clamp_min(torch.sqrt(self.v), self.eps), -clip, clip)
+        m = (1 - b1) * mu_updates + b1 * self.m.float()
+        return _neg_lr(self, m), [(self.m, m.to(self.m.dtype)), (self.v, v)]
+
+
+class Lion(_FlatOptimizer):
+    """optax's ``lion``: sign((1 - b1) g + b1 m), then m <- (1 - b2) g + b2 m
+    (stored in ``mu_dtype``), masked decoupled weight decay, -lr."""
+
+    def __init__(self, named_params, lr: float = 1e-3, betas=(0.9, 0.99),
+                 weight_decay: float = 1e-3, wd_mask=None,
+                 mu_dtype: Optional[torch.dtype] = None, **wrap):
+        super().__init__(named_params, lr, weight_decay, wd_mask, **wrap)
+        self.b1, self.b2 = (float(b) for b in betas)
+        self.m = torch.zeros(self.flat_param.numel(), dtype=mu_dtype or torch.float32,
+                             device=self.device)
+
+    def slots(self):
+        return dict(mu=self.m, **super().slots())
+
+    def _update(self, g, p):
+        b1, b2 = self.b1, self.b2
+        u = torch.sign((1.0 - b1) * g + b1 * self.m)
+        m = (1 - b2) * g + b2 * self.m
+        return _neg_lr(self, self._add_decay(u, p)), [(self.m, m.to(self.m.dtype))]
+
+
+class Lars(_FlatOptimizer):
+    """optax's ``lars`` as the JAX factory builds it:
+    ``add_decayed_weights(wd, mask) -> scale_by_trust_ratio(trust_coefficient)
+    -> scale_by_learning_rate -> trace(momentum)``; the trust ratio per
+    leaf, 1 where either norm is 0; the trace holds lr-scaled updates."""
+
+    def __init__(self, named_params, lr: float = 1e-3, momentum: float = 0.9,
+                 weight_decay: float = 0.0, trust_coefficient: float = 0.001, wd_mask=None,
+                 **wrap):
+        super().__init__(named_params, lr, weight_decay, wd_mask, **wrap)
+        self.momentum, self.trust_coefficient = float(momentum), float(trust_coefficient)
+        self.trace = torch.zeros_like(self.flat_param)
+
+    def slots(self):
+        return dict(trace=self.trace, **super().slots())
+
+    def _update(self, g, p):
+        u = self._add_decay(g, p)
+        p_norm, u_norm = self._leaf_norms(p), self._leaf_norms(u)
+        ratio = self.trust_coefficient * p_norm / u_norm
+        ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0, ratio)
+        u = _neg_lr(self, u * self._expand(ratio))
+        trace = u + self.momentum * self.trace
+        return trace, [(self.trace, trace)]
+
+
+class Adan(_FlatOptimizer):
+    """optax's ``adan``: the moments of g, of its difference from the last
+    gradient (0 at the first step) and of their Nesterov mix, each bias
+    corrected; masked decoupled weight decay, -lr."""
+
+    def __init__(self, named_params, lr: float = 1e-3, betas=(0.98, 0.92, 0.99),
+                 eps: float = 1e-8, eps_root: float = 1e-8, weight_decay: float = 0.0,
+                 wd_mask=None, **wrap):
+        super().__init__(named_params, lr, weight_decay, wd_mask, **wrap)
+        self.b1, self.b2, self.b3 = (float(b) for b in betas)
+        self.eps, self.eps_root = float(eps), float(eps_root)
+        self.m, self.v, self.n, self.g = (torch.zeros_like(self.flat_param) for _ in range(4))
+
+    def slots(self):
+        return dict(m=self.m, v=self.v, n=self.n, g=self.g, **super().slots())
+
+    def _update(self, g, p):
+        b1, b2, b3, t = self.b1, self.b2, self.b3, _t(self)
+        diff = torch.where(self.count == 0, 0.0, g - self.g)
+        m = (1 - b1) * g + b1 * self.m
+        v = (1 - b2) * diff + b2 * self.v
+        sq = g + (1 - b2) * diff
+        n = (1 - b3) * (sq * sq) + b3 * self.n
+        u = _bias_correction(m, b1, t) + (1 - b2) * _bias_correction(v, b2, t)
+        u = u / (torch.sqrt(_bias_correction(n, b3, t) + self.eps_root) + self.eps)
+        return _neg_lr(self, self._add_decay(u, p)), [
+            (self.m, m), (self.v, v), (self.n, n), (self.g, g)]
+
+
+class NovoGrad(_FlatOptimizer):
+    """optax's ``novograd``: a per-leaf second moment of the squared
+    gradient norm (the norm itself at the first step), the first moment of
+    g / (sqrt(nu) + eps) + wd * p over every leaf (optax's own weight decay,
+    no mask), -lr."""
+
+    def __init__(self, named_params, lr: float = 1e-3, betas=(0.9, 0.25), eps: float = 1e-6,
+                 eps_root: float = 0.0, weight_decay: float = 0.0, **wrap):
+        super().__init__(named_params, lr, **wrap)
+        self.b1, self.b2 = (float(b) for b in betas)
+        self.eps, self.eps_root, self.wd = float(eps), float(eps_root), float(weight_decay)
+        self.m = torch.zeros_like(self.flat_param)
+        self.nu = torch.zeros(len(self._params), dtype=torch.float32, device=self.device)
+
+    def slots(self):
+        return dict(mu=self.m, **super().slots())
+
+    def leaf_state(self):
+        return {'nu': {name: self.nu[i] for i, (name, _) in enumerate(self._params)}}
+
+    def _update(self, g, p):
+        first = self.count == 0
+        sq = self._leaf_norms(g) ** 2
+        nu = torch.where(first, sq, (1 - self.b2) * sq + self.b2 * self.nu)
+        add = g / (torch.sqrt(self._expand(nu) + self.eps_root) + self.eps) + self.wd * p
+        m = torch.where(first, add, self.b1 * self.m + add)
+        return _neg_lr(self, m), [(self.m, m), (self.nu, nu)]
+
+
+class RMSprop(_FlatOptimizer):
+    """optax's ``rmsprop(decay=0.9, momentum=0.9)`` as the JAX registry
+    binds it: nu <- decay nu + (1 - decay) g^2 from 0, g / sqrt(nu + eps),
+    -lr, then the momentum trace; coupled L2 first. With ``tf=True`` the
+    JAX package's ``_rmsprop_tf`` (TF1 RMSprop): the same scaling, then
+    masked weight decay, then the trace (none at momentum 0), then -lr."""
+
+    def __init__(self, named_params, lr: float = 1e-3, decay: float = 0.9, eps: float = 1e-8,
+                 momentum: Optional[float] = 0.9, weight_decay: float = 0.0, wd_mask=None,
+                 tf: bool = False, **wrap):
+        super().__init__(named_params, lr, weight_decay, wd_mask, **wrap)
+        self.decay, self.eps, self.tf = float(decay), float(eps), tf
+        self.momentum = momentum
+        self.nu = torch.zeros_like(self.flat_param)
+        has_trace = bool(momentum) if tf else momentum is not None
+        self.trace = torch.zeros_like(self.flat_param) if has_trace else None
+
+    def slots(self):
+        return dict(nu=self.nu, **({} if self.trace is None else {'trace': self.trace}),
+                    **super().slots())
+
+    def _update(self, g, p):
+        if not self.tf:
+            g = self._add_decay(g, p)
+        d = self.decay
+        nu = (1 - d) * (g * g) + d * self.nu
+        u = torch.rsqrt(nu + self.eps) * g
+        new = [(self.nu, nu)]
+        if self.tf:
+            u = self._add_decay(u, p)
+        else:
+            u = _neg_lr(self, u)
+        if self.trace is not None:
+            u = u + self.momentum * self.trace
+            new.append((self.trace, u))
+        return (_neg_lr(self, u) if self.tf else u), new
+
+
+class SGDW(SGD):
+    """The JAX package's ``_sgdw`` ('sgdw', and 'sgdp', which JAX
+    approximates by it): ``trace(momentum, nesterov) ->
+    add_decayed_weights(wd, mask) -> scale_by_learning_rate`` (decoupled
+    from the trace, scaled by lr)."""
+
+    def __init__(self, named_params, momentum: Optional[float] = 0.9, nesterov: bool = False,
+                 **kw):
+        super().__init__(named_params, momentum=momentum, nesterov=nesterov, **kw)
+
+    def _update(self, g, p):
+        new = []
+        if self.trace is not None:
+            trace = g + self.momentum * self.trace
+            g = g + self.momentum * trace if self.nesterov else trace
+            new.append((self.trace, trace))
+        return _neg_lr(self, self._add_decay(g, p)), new
+
+
+class Adadelta(_FlatOptimizer):
+    """optax's ``adadelta``: masked weight decay first (optax's own), then
+    u = sqrt(e_x + eps) / sqrt(e_g + eps) g with e_g, e_x the running means
+    of g^2 and u^2, -lr."""
+
+    def __init__(self, named_params, lr: float = 1e-3, rho: float = 0.9, eps: float = 1e-6,
+                 weight_decay: float = 0.0, wd_mask=None, **wrap):
+        super().__init__(named_params, lr, weight_decay, wd_mask, **wrap)
+        self.rho, self.eps = float(rho), float(eps)
+        self.e_g = torch.zeros_like(self.flat_param)
+        self.e_x = torch.zeros_like(self.flat_param)
+
+    def slots(self):
+        return dict(e_g=self.e_g, e_x=self.e_x, **super().slots())
+
+    def _update(self, g, p):
+        g = self._add_decay(g, p)
+        rho, eps = self.rho, self.eps
+        e_g = (1 - rho) * (g * g) + rho * self.e_g
+        u = torch.sqrt(self.e_x + eps) / torch.sqrt(e_g + eps) * g
+        e_x = (1 - rho) * (u * u) + rho * self.e_x
+        return _neg_lr(self, u), [(self.e_g, e_g), (self.e_x, e_x)]
+
+
+class Adagrad(_FlatOptimizer):
+    """optax's ``adagrad``: the sum of squares from 0.1 (optax's
+    ``initial_accumulator_value``), g * rsqrt(sum + eps) where the sum is
+    positive, -lr; coupled L2 first."""
+
+    def __init__(self, named_params, lr: float = 1e-3, initial_accumulator_value: float = 0.1,
+                 eps: float = 1e-7, weight_decay: float = 0.0, wd_mask=None, **wrap):
+        super().__init__(named_params, lr, weight_decay, wd_mask, **wrap)
+        self.eps = float(eps)
+        self.sum_of_squares = torch.full_like(self.flat_param, float(initial_accumulator_value))
+
+    def slots(self):
+        return dict(sum_of_squares=self.sum_of_squares, **super().slots())
+
+    def _update(self, g, p):
+        g = self._add_decay(g, p)
+        sos = g * g + self.sum_of_squares
+        inv = torch.where(sos > 0, torch.rsqrt(sos + self.eps), 0.0)
+        return _neg_lr(self, inv * g), [(self.sum_of_squares, sos)]
+
+
+def _jax_perm(ndim: int, kernel: bool) -> Tuple[int, ...]:
+    """The permutation from a port weight's layout to its JAX kernel's:
+    (out, in) -> (in, out), (O, I, W) -> (W, I, O), OIHW -> HWIO."""
+    if not kernel or ndim < 2:
+        return tuple(range(ndim))
+    return (2, 3, 1, 0) if ndim == 4 else tuple(reversed(range(ndim)))
+
+
+class _JaxLayout:
+    """Per-leaf state built on the JAX layout's dims: a leaf's gradient and
+    parameter seen through a permuted view (``jax``), and back (``port``).
+    ``kernels`` names the weights that are conv or linear kernels in JAX."""
+
+    def _init_layout(self, kernels) -> None:
+        self._perm = {n: _jax_perm(p.ndim, n in kernels) for n, p in self._params}
+
+    def _jax_shape(self, name: str) -> Tuple[int, ...]:
+        shape = self._slots[name][1]
+        return tuple(shape[i] for i in self._perm[name])
+
+    def _jax(self, flat: torch.Tensor, name: str) -> torch.Tensor:
+        return self._view(flat, name).permute(self._perm[name])
+
+    def _port(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        return x.permute(tuple(int(i) for i in np.argsort(self._perm[name])))
+
+
+def factored_dims(shape: Sequence[int], factored: bool, min_dim_size_to_factor: int):
+    """optax's ``_factored_dims``: (d1, d0), the second largest and the
+    largest dims by numpy's argsort, or None."""
+    if not factored or len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < min_dim_size_to_factor:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
+class Adafactor(_JaxLayout, _FlatOptimizer):
+    """optax's ``adafactor`` as the JAX factory builds it (``_adafactor``):
+    factored second moments (rows and columns of the two largest dims of at
+    least ``min_dim_size_to_factor``, else a full one) with the decay
+    1 - (step + 1) ** -decay_rate, the block RMS clip at
+    ``clipping_threshold``, x lr, x the parameter's RMS (at least 1e-3),
+    masked weight decay after the lr (optax's ``weight_decay_rate``), -1.
+
+    The moments are built on the JAX layout's dims (see ``_JaxLayout``), so
+    the factored dims are JAX's and a JAX checkpoint loads as it is:
+    ``v_row``, ``v_col`` and ``v`` per leaf, (1,) where a leaf has none."""
+
+    def __init__(self, named_params, lr: float = 1e-3, clipping_threshold: Optional[float] = 1.0,
+                 decay_rate: float = 0.8, weight_decay: float = 0.0, wd_mask=None,
+                 min_dim_size_to_factor: int = 32, kernels=(), **wrap):
+        super().__init__(named_params, lr, weight_decay, wd_mask, **wrap)
+        self._init_layout(kernels)
+        self.clipping_threshold, self.decay_rate = clipping_threshold, float(decay_rate)
+        self.eps = 1e-30
+        self.v_row, self.v_col, self.v, self._dims = {}, {}, {}, {}
+        one = lambda: torch.zeros(1, device=self.device)  # noqa: E731
+        for name, _ in self._params:
+            shape = self._jax_shape(name)
+            dims = factored_dims(shape, True, min_dim_size_to_factor)
+            self._dims[name] = dims
+            if dims is None:
+                self.v_row[name], self.v_col[name] = one(), one()
+                self.v[name] = torch.zeros(shape, device=self.device)
+            else:
+                d1, d0 = dims
+                self.v_row[name] = torch.zeros(np.delete(shape, d0).tolist(), device=self.device)
+                self.v_col[name] = torch.zeros(np.delete(shape, d1).tolist(), device=self.device)
+                self.v[name] = one()
+
+    def leaf_state(self):
+        return {'v_row': self.v_row, 'v_col': self.v_col, 'v': self.v}
+
+    def _update(self, g, p):
+        i = self.count.to(torch.float32) + 1
+        dr = 1.0 - torch.pow(i, -self.decay_rate)
+        u = torch.zeros_like(p)
+        new = []
+        for name, _ in self._params:
+            gj = self._jax(g, name)
+            g2 = gj * gj + self.eps
+            dims = self._dims[name]
+            if dims is None:
+                v = dr * self.v[name] + (1.0 - dr) * g2
+                upd = gj * torch.pow(v, -0.5)
+                new.append((self.v[name], v))
+            else:
+                d1, d0 = dims
+                vr = dr * self.v_row[name] + (1.0 - dr) * g2.mean(dim=d0)
+                vc = dr * self.v_col[name] + (1.0 - dr) * g2.mean(dim=d1)
+                rd1 = d1 - 1 if d1 > d0 else d1
+                row = torch.pow(vr / vr.mean(dim=rd1, keepdim=True), -0.5)
+                col = torch.pow(vc, -0.5)
+                upd = gj * row.unsqueeze(d0) * col.unsqueeze(d1)
+                new += [(self.v_row[name], vr), (self.v_col[name], vc)]
+            if self.clipping_threshold is not None:
+                denom = torch.clamp_min(torch.sqrt(torch.mean(upd * upd))
+                                        / self.clipping_threshold, 1.0)
+                upd = upd / denom
+            upd = upd * self.lr_t
+            pj = self._jax(p, name)
+            rms = torch.sqrt(torch.mean(pj * pj))
+            upd = upd * torch.where(rms <= 1e-3, 1e-3, rms)
+            self._view(u, name).copy_(self._port(upd, name))
+        return -self._add_decay(u, p), new
+
+
+class SM3(_JaxLayout, _FlatOptimizer):
+    """optax's ``sm3(lr, momentum)``: one accumulator vector per dim of the
+    leaf's JAX shape (the leaf's own squares for a 1-d leaf), the update
+    g * rsqrt(g^2 + min over the dims' accumulators + 1e-8) where that is
+    positive, its momentum ``nu`` (1 - b1) u + b1 nu, -lr; coupled L2
+    first. The accumulators are ``mu.<leaf>.<dim>`` over the JAX layout's
+    dims (see ``_JaxLayout``)."""
+
+    def __init__(self, named_params, lr: float = 1e-3, momentum: float = 0.9,
+                 weight_decay: float = 0.0, wd_mask=None, kernels=(), **wrap):
+        super().__init__(named_params, lr, weight_decay, wd_mask, **wrap)
+        self._init_layout(kernels)
+        self.b1, self.eps = float(momentum), 1e-8
+        self.nu = torch.zeros_like(self.flat_param)
+        self.mu = {name: [torch.zeros(s, device=self.device) for s in self._jax_shape(name)]
+                   for name, _ in self._params}
+
+    def slots(self):
+        return dict(nu=self.nu, **super().slots())
+
+    def leaf_state(self):
+        return {'mu': {f'{name}.{i}': a for name, accs in self.mu.items()
+                       for i, a in enumerate(accs)}}
+
+    def _update(self, g, p):
+        g = self._add_decay(g, p)
+        up, new = torch.zeros_like(p), []
+        for name, _ in self._params:
+            gj, accs = self._jax(g, name), self.mu[name]
+            if gj.ndim < 2:
+                accum = gj * gj + accs[0]
+                new.append((accs[0], accum))
+            else:
+                shaped = [a.reshape([1] * i + [-1] + [1] * (gj.ndim - i - 1))
+                          for i, a in enumerate(accs)]
+                low = shaped[0]
+                for a in shaped[1:]:
+                    low = torch.minimum(low, a)
+                accum = gj * gj + low
+                for i, a in enumerate(accs):
+                    others = [d for d in range(gj.ndim) if d != i]
+                    new.append((a, torch.amax(accum, dim=others)))
+            inv = torch.where(accum > 0, torch.rsqrt(accum + self.eps), 0.0)
+            self._view(up, name).copy_(self._port(gj * inv, name))
+        nu = (1 - self.b1) * up + self.b1 * self.nu
+        return _neg_lr(self, nu), new + [(self.nu, nu)]

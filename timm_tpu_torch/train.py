@@ -25,7 +25,8 @@ graph per batch shape: the augment-epilogue kernel for ``--remode const``,
 the torch program for 'rand' and 'pixel' (the default), as in the JAX
 package. ``--aa`` takes RandAugment, AutoAugment and AugMix strings;
 ``--aug-splits N`` with ``--jsd-loss`` trains AugMix with the JSD loss on
-host-augmented split batches.
+host-augmented split batches, and ``--split-bn`` gives every BatchNorm one
+set of statistics a split (``layers/split_batchnorm.py``).
 Checkpoints are the JAX package's single-file .npz with its SHA-256
 manifest (``utils/checkpoint_saver.py``); ``--resume auto`` continues from
 the newest valid one, mid-epoch after a SIGTERM, bit for bit on the CPU.
@@ -263,7 +264,6 @@ _UNPORTED = (
     ('fsdp', 'A.5.11'), ('tp', 'A.5.11'), ('distributed', 'A.5.11'), ('elastic', 'A.5.11'),
     ('nonfinite_rollback', 'A.5.11'),
     ('autotune', 'A.5.12'), ('autotune_probe_top_k', 'A.5.12'), ('log_wandb', 'A.5.12'),
-    ('split_bn', 'A.5.6: split BN comes with split_batchnorm.py, the ResNet step'),
     ('epoch_repeats', 'A.5.1: the JAX script parses it and never reads it'),
     ('worker_seeding', 'A.5.1: the JAX script parses it and never reads it'),
     ('amp_dtype', 'A.5.7: --amp is bf16; the JAX script parses --amp-dtype and never reads it'),
@@ -397,6 +397,13 @@ def main(argv=None) -> int:
         if args.aug_splits < 2:
             raise ValueError('--aug-splits: a split of 1 makes no sense')
         num_aug_splits = args.aug_splits
+    if args.split_bn:
+        # per-split BatchNorm statistics, converted before the optimizer
+        # captures the parameters (as the JAX script does)
+        if num_aug_splits < 2:
+            raise ValueError('--split-bn requires --aug-splits > 1')
+        from .layers import convert_splitbn_model
+        model = convert_splitbn_model(model, max(num_aug_splits, 2))
 
     data_config = resolve_data_config(vars(args), model=model, verbose=True)
     img_size = data_config['input_size'][-1]

@@ -12,9 +12,16 @@ the last one padded, runs at one bucket shape (``serve.batch_bucket`` /
 card a ViT's attention is the flash-attention kernel, and TF32 is off
 (``_device.use_full_fp32``): fp32 convolutions and matmuls compute in fp32.
 
-``--quantize``, ``--test-pool``, ``--real-labels``, ``--fsdp``, ``--tp``,
-``--block-scan`` and ``--pretrained`` raise ``NotImplementedError`` naming
-their ROADMAP item.
+``--test-pool`` wraps the model in ``TestTimePoolHead`` when the eval size
+exceeds the model's default in both dims, and then evaluates full images
+(``crop_pct`` 1.0), as the JAX script does; the results row says whether it
+did (``test_time_pool``). A checkpoint of a ``--split-bn`` run loads into
+the plain model: its aux statistics are left out (eval uses the primary
+ones only; the JAX script refuses such a checkpoint).
+
+``--quantize``, ``--real-labels``, ``--fsdp``, ``--tp``, ``--block-scan``
+and ``--pretrained`` raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -55,7 +62,7 @@ parser.add_argument('-j', '--workers', default=4, type=int, metavar='N')
 parser.add_argument('--log-freq', default=20, type=int, metavar='N')
 parser.add_argument('--amp', action='store_true', default=False, help='bf16 compute')
 parser.add_argument('--test-pool', dest='test_pool', action='store_true',
-                    help='not ported (ROADMAP A.5.6)')
+                    help='enable test time pool')
 parser.add_argument('--real-labels', default='', type=str, metavar='FILENAME',
                     help='not ported (ROADMAP A.5.1)')
 parser.add_argument('--results-file', default='', type=str, metavar='FILENAME')
@@ -77,7 +84,7 @@ parser.add_argument('--tp', type=int, default=0, metavar='N', help='not ported (
 
 _UNPORTED = (
     ('pretrained', 'A.5.1: no hub; pass --checkpoint'), ('quantize', 'A.5.10'),
-    ('test_pool', 'A.5.6'), ('real_labels', 'A.5.1'), ('fsdp', 'A.5.11'), ('tp', 'A.5.11'),
+    ('real_labels', 'A.5.1'), ('fsdp', 'A.5.11'), ('tp', 'A.5.11'),
     ('block_scan', 'A.5.7'),
 )
 
@@ -146,6 +153,15 @@ def validate(args, predictions=None):
     data_config = resolve_data_config(vars(args), model=model)
     param_count = sum(p.numel() for p in model.parameters())
     _logger.info(f'Model {args.model} created, param count: {param_count / 1e6:.1f}M')
+    test_time_pool = False
+    if args.test_pool:
+        from .layers import apply_test_time_pool
+        model, test_time_pool = apply_test_time_pool(model, data_config)
+        if test_time_pool:
+            data_config['crop_pct'] = 1.0  # full-image input for the pooled head
+        else:
+            _logger.info('--test-pool requested but the eval size does not exceed the '
+                         'pretrained default; using the standard head')
     _, loader = eval_loader(args, data_config, device)
     normalize = Normalize(data_config['mean'], data_config['std'], device)
 
@@ -190,6 +206,7 @@ def validate(args, predictions=None):
         img_size=data_config['input_size'][-1],
         crop_pct=data_config['crop_pct'],
         interpolation=data_config['interpolation'],
+        test_time_pool=test_time_pool,
     )
     # the unrounded loss, for callers that compare runs, and the rate of the
     # eval loop (data loading included)
