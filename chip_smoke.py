@@ -71,7 +71,32 @@ added last (5 replayed steps against eager ones, two updates against the
 CPU, the optimizer step timed) (``resnet_train``); and, last, timm's
 ResNet-50 AugMix / JSD / split-BN recipe through the train driver, stopped
 by SIGTERM and resumed bit for bit, validated, with test-time pooling, and
-inferred (``resnet_drivers``).
+inferred (``resnet_drivers``). NaFlex (``naflexvit_base_patch16_gap``,
+full width and depth, bf16) runs after ResNet-50's train phase: 4 rows at L
+576 with 576 / 401 / 200 / 64 valid tokens against fp32 on the CPU, the
+card's fp32 against the CPU, and in both mask modes every block's
+attention (the flash kernel with the key-padding mask, JAX's value in the
+padded query rows) against the plain version (``naflex_model``); served at
+384 px through the engine's bucket graphs, the flash kernel unmasked
+(``naflex_serve``); trained through NaFlexClassificationTask from seeded
+PNGs of 96-640 px through the NaFlex loader's token-budget buckets (128 to
+1024 tokens, 36,864 a batch), mixup, cutmix and 'pixel' erasing on the
+card, each bucket's replay checked bit for bit against its eager body
+after other buckets ran, per-bucket step, host and attention times, and
+gradients against the CPU (``naflex_train``); and, after ResNet-50's
+driver phase, the train driver with ``--naflex-loader`` run A, stopped by
+SIGTERM and resumed, bit for bit (``naflex_drivers``). Differential
+attention (``vit_dlittle_patch16_reg1_gap_256``, full width and depth, 256
+px, layer scale lifted from its 1e-5 init) runs after NaFlex's train
+phase: bf16 on the card against fp32 on the CPU (``dlittle_model``),
+served (``dlittle_serve``), trained with AdamW (replays against the eager
+body, its DiffAttention modules timed alone, gradients against the CPU;
+``dlittle_train``), and last a driver run with 'const' erasing through the
+augment-epilogue kernel at 256 px (``dlittle_drivers``). To keep the
+script inside its time limit with the NaFlex phases, three earlier paths
+run at a cut depth: ``train_graph``'s untimed arms (ViT-B/16 at 6 blocks),
+``resnet_train``'s optimizer arms (resnet50 at one bottleneck a stage) and
+``drivers``' Muon arm (ViT-B/16 at 6 blocks).
 
 Phase ``kernels`` reads the kernel registry (``timm_tpu_torch/kernels/
 registry.py``): every registered kernel is held to its plain version at
@@ -100,6 +125,7 @@ non-zero at once. It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
 import json
@@ -731,24 +757,63 @@ def phase_serve():
     return launches, device_flash, engine
 
 
+MARK = 'spin_kernel'    # torch.cuda._sleep's kernel: the mark between profiled calls
+
+
+def _mark():
+    """A kernel of its own name on the current stream, after a profiled call."""
+    import torch
+    torch.cuda._sleep(1)
+
+
+def _kernels_by_call(prof, reps: int):
+    """Device time by kernel name per call, and the kernels one call ran by
+    name, from a profile of ``reps`` calls each followed by ``_mark()``.
+
+    The profiler loses kernel records: the first of a session, and a few
+    more late in a long process (on the card: fractional kernels per graph
+    replay in most phases, one depthwise kernel short of a ConvNeXt-B
+    replay). A lost record only lowers a call's count, and the calls
+    profiled here run the same kernels each time, so a kernel's count is
+    the most any call showed.
+    If a mark itself was lost, the calls cannot be told apart and the counts
+    are the mean over the calls."""
+    from torch.autograd import DeviceType
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and not getattr(e, 'is_user_annotation', False)),
+                    key=lambda e: e.time_range.start)
+    kernels, calls = {}, [{}]
+    for e in events:
+        if MARK in e.name:
+            calls.append({})
+            continue
+        kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3 / reps
+        calls[-1][e.name] = calls[-1].get(e.name, 0) + 1
+    if len(calls) == reps + 1 and not calls[-1]:
+        return kernels, {name: max(c.get(name, 0) for c in calls) for name in kernels}
+    totals = {}
+    for c in calls:
+        for name, n in c.items():
+            totals[name] = totals.get(name, 0) + n
+    return kernels, {name: n / reps for name, n in totals.items()}
+
+
 def _profile_kernels(fn, reps: int):
     """Device time by kernel name per call over ``reps`` calls of ``fn``
-    under torch.profiler, and the host wall time per call."""
+    under torch.profiler, the kernels one call ran by name (see
+    ``_kernels_by_call``), and the host wall time per call."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
+            _mark()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    kernels, counts = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not getattr(e, 'is_user_annotation', False):
-            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3 / reps
-            counts[e.name] = counts.get(e.name, 0) + 1
-    return kernels, counts, wall_ms
+    kernels, per_call = _kernels_by_call(prof, reps)
+    return kernels, per_call, wall_ms
 
 
 def phase_breakdown(engine):
@@ -782,7 +847,7 @@ def phase_breakdown(engine):
     flash = sum(v for k, v in kernels.items() if 'flash_fwd_kernel' in k)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     replay_busy = sum(replay_kernels.values())
-    replay_flash = sum(c for k, c in replay_counts.items() if 'flash_fwd_kernel' in k) / reps
+    replay_flash = sum(c for k, c in replay_counts.items() if 'flash_fwd_kernel' in k)
     emit({'phase': 'breakdown', 'model': 'vit_base_patch16_224', 'dtype': 'bfloat16',
           'per_bucket': per_bucket, 'profiled_batch': 64,
           'wall_ms_per_forward': wall_ms,
@@ -794,7 +859,7 @@ def phase_breakdown(engine):
           'replay_wall_ms': replay_wall_ms,
           'replay_device_ms': replay_busy if replay_kernels else 'not measured',
           'replay_idle_share': 1.0 - replay_busy / replay_wall_ms if replay_kernels else 'not measured',
-          'replay_kernels_per_forward': sum(replay_counts.values()) / reps if replay_kernels
+          'replay_kernels_per_forward': sum(replay_counts.values()) if replay_kernels
           else 'not measured',
           'replay_flash_kernels_per_forward': replay_flash if replay_kernels else 'not measured'})
     check(not replay_kernels or replay_flash == len(model.blocks),
@@ -835,7 +900,7 @@ def _train_batch(n: int, seed: int, device, size: int = 224):
             'target': torch.from_numpy(labels).to(device)}
 
 
-def _per_step(counts, steps: int):
+def _per_step(counts, steps: int = 1):
     """Kernels a step ran, by the three kernels' names, from the profiler's
     counts over ``steps`` steps."""
     names = {'flash_attention': 'flash_fwd_kernel', 'fused_adamw': 'fused_adamw_kernel',
@@ -886,7 +951,7 @@ def phase_train():
     reps = 3
     kernels, counts, prof_wall_ms = _profile_kernels(
         lambda: task.train_step(batch, lr=1e-5, step=TRAIN_STEPS + 1), reps)
-    replayed = _per_step(counts, reps)
+    replayed = _per_step(counts)
     busy = sum(kernels.values())
     losses = [float(m['loss']) for m in metrics]
     last = metrics[-1]
@@ -923,9 +988,10 @@ def phase_train():
     return launches, task, batch, step_ms
 
 
-def _write_image_folder(root: str, per_class: int, seed: int = 0):
-    """A folder of class folders of seeded RGB PNGs, 256-320 px a side:
-    smooth random colour fields with pixel noise, written in parallel."""
+def _write_image_folder(root: str, per_class: int, seed: int = 0, sides=(256, 320)):
+    """A folder of class folders of seeded RGB PNGs, ``sides`` (256-320) px
+    a side: smooth random colour fields with pixel noise, written in
+    parallel."""
     from concurrent.futures import ThreadPoolExecutor
 
     from PIL import Image
@@ -934,7 +1000,7 @@ def _write_image_folder(root: str, per_class: int, seed: int = 0):
     for c in range(3):
         os.makedirs(os.path.join(root, f'class{c}'))
         for i in range(per_class):
-            h, w = (int(v) for v in rng.integers(256, 321, 2))
+            h, w = (int(v) for v in rng.integers(sides[0], sides[1] + 1, 2))
             coarse = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), dtype=np.uint8)
             noise = rng.integers(-12, 13, (h, w, 3))
             jobs.append((os.path.join(root, f'class{c}', f'{i:04d}.png'), coarse, noise, (w, h)))
@@ -946,6 +1012,27 @@ def _write_image_folder(root: str, per_class: int, seed: int = 0):
     with ThreadPoolExecutor(8) as pool:
         list(pool.map(write, jobs))
     return len(jobs)
+
+
+_IMAGE_DATA = {}
+
+
+def _image_data() -> str:
+    """The image phases' folder of seeded 256-320 px PNGs: train/ (3 x
+    INPUT_IMAGES_PER_CLASS, seed 0) and validation/ (3 x
+    DRIVER_VALIDATION_PER_CLASS, seed 1), written once into a temp dir that
+    main removes; the phases only read it."""
+    import tempfile
+    if 'root' not in _IMAGE_DATA:
+        root = tempfile.mkdtemp(prefix='chip_smoke_images_')
+        _IMAGE_DATA['root'] = root
+        t0 = time.perf_counter()
+        _IMAGE_DATA['train'] = _write_image_folder(os.path.join(root, 'train'),
+                                                   INPUT_IMAGES_PER_CLASS)
+        _IMAGE_DATA['validation'] = _write_image_folder(
+            os.path.join(root, 'validation'), DRIVER_VALIDATION_PER_CLASS, seed=1)
+        _IMAGE_DATA['write_s'] = time.perf_counter() - t0
+    return _IMAGE_DATA['root']
 
 
 def _input_loader(root, data_config, device, seed=0, num_workers=INPUT_WORKERS, no_aug=False,
@@ -1029,20 +1116,15 @@ def phase_input_train(train_step_ms: float):
     steps, which counts the kernels they ran, the input path's own rate over 2 epochs
     without training, and a card stage and a CPU stage over the same
     deterministic loader, which must agree."""
-    import tempfile
-
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import timm_tpu_torch
     from timm_tpu_torch.data import resolve_model_data_config
     from timm_tpu_torch.kernels import augment_epilogue, flash_attention, fused_adamw
     from timm_tpu_torch.loss import SoftTargetCrossEntropy
-    with tempfile.TemporaryDirectory(prefix='chip_smoke_images_') as root:
-        t0 = time.perf_counter()
-        n_images = _write_image_folder(root, INPUT_IMAGES_PER_CLASS)
-        write_s = time.perf_counter() - t0
+    with contextlib.nullcontext(os.path.join(_image_data(), 'train')) as root:
+        n_images, write_s = _IMAGE_DATA['train'], _IMAGE_DATA['write_s']
         model = timm_tpu_torch.create_model('vit_base_patch16_224', dtype=torch.bfloat16, seed=0,
                                             drop_path_rate=0.1, device='cuda')
         data_config = resolve_model_data_config(model)
@@ -1094,6 +1176,7 @@ def phase_input_train(train_step_ms: float):
             for i in range(reps):
                 x, y = next(batches)
                 task.train_step({'input': x, 'target': y}, lr=1e-5, step=TRAIN_STEPS + 1 + i)
+                _mark()
                 del x, y
             torch.cuda.synchronize()
             prof_wall_ms = (time.perf_counter() - tp) * 1e3 / reps
@@ -1109,14 +1192,13 @@ def phase_input_train(train_step_ms: float):
         torch.cuda.synchronize()
         loader_img_per_s = 2 * len(loader) * TRAIN_BATCH / (time.perf_counter() - tl)
         loader_only.close()
-        kernels, counts = {}, {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA and not getattr(e, 'is_user_annotation', False):
-                kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3 / reps
-                counts[e.name] = counts.get(e.name, 0) + 1
+        # flash and fused AdamW run in every step; the augment epilogue in
+        # the steps whose batch the stage augmented, so its count is whether
+        # a profiled step ran it
+        kernels, counts = _kernels_by_call(prof, reps)
         busy = sum(kernels.values())
         epilogue = sum(v for k, v in kernels.items() if 'augment_epilogue_kernel' in k)
-        replayed = _per_step(counts, reps)
+        replayed = _per_step(counts)
 
         host_ms = _host_ms_per_image(root, data_config)
 
@@ -1359,8 +1441,6 @@ def phase_recipe_train():
     ``--resume auto`` regenerates them, against this run's. Last, an AugMix
     arm on the host path: 'augmix-m3-w3' in 3 splits of 32 images (96 a
     step), JsdCrossEntropy, 10 graphed steps against the eager body."""
-    import tempfile
-
     import torch
 
     import timm_tpu_torch
@@ -1371,8 +1451,8 @@ def phase_recipe_train():
     from timm_tpu_torch.loss import SoftTargetCrossEntropy
     kernels = (flash_attention, fused_adamw, augment_epilogue)
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix='chip_smoke_recipe_') as root:
-        n_images = _write_image_folder(root, INPUT_IMAGES_PER_CLASS)
+    with contextlib.nullcontext(os.path.join(_image_data(), 'train')) as root:
+        n_images = _IMAGE_DATA['train']
         model = timm_tpu_torch.create_model('vit_base_patch16_224', dtype=torch.bfloat16, seed=0,
                                             drop_path_rate=0.1, device='cuda')
         data_config = resolve_model_data_config(model)
@@ -1538,9 +1618,14 @@ DRIVER_SIGTERM_AT = 12
 DRIVER_VALIDATION_PER_CLASS = 64   # 192 validation images
 # phase drivers' Muon arm: the same flags with these after them, one epoch;
 # run M uninterrupted, run N stopped by SIGTERM after this update and resumed
+# ViT-B/16 cut to MUON_DRIVER_DEPTH blocks, so that the whole script stays
+# inside its time limit with the NaFlex phases (the arm evaluates in the
+# train run only; validate has no --model-kwargs, as the JAX script's)
+MUON_DRIVER_DEPTH = 6
 MUON_DRIVER_FLAGS = ['--epochs', '1', '--opt', 'muon', '--momentum', '0.95',
                      '--sched', 'step', '--decay-epochs', '1', '--warmup-epochs', '0',
-                     '--layer-decay', '0.75', '--opt-caution', '--bce-loss']
+                     '--layer-decay', '0.75', '--opt-caution', '--bce-loss',
+                     '--model-kwargs', f'depth={MUON_DRIVER_DEPTH}']
 MUON_DRIVER_SIGTERM_AT = 4
 DRIVER_EVAL_REL_TOL = 1e-4         # validate's loss vs the train run's EMA evaluation
 
@@ -1667,12 +1752,8 @@ def phase_drivers():
     row = {'phase': 'drivers', 'model': 'vit_base_patch16_224', 'dtype': 'bfloat16',
            'flags': ' '.join(DRIVER_FLAGS), 'sigterm_at': DRIVER_SIGTERM_AT}
     try:
-        data = os.path.join(tmp, 'data')
-        t0 = time.perf_counter()
-        n_train = _write_image_folder(os.path.join(data, 'train'), INPUT_IMAGES_PER_CLASS)
-        n_val = _write_image_folder(os.path.join(data, 'validation'), DRIVER_VALIDATION_PER_CLASS,
-                                    seed=1)
-        write_s = time.perf_counter() - t0
+        data = _image_data()
+        n_train, n_val, write_s = (_IMAGE_DATA[k] for k in ('train', 'validation', 'write_s'))
         out = os.path.join(tmp, 'out')
         per_epoch = n_train // 64
         updates = 2 * per_epoch
@@ -1834,7 +1915,7 @@ def phase_drivers():
         check(muon['updates'] == {'m': per_epoch, 'n': MUON_DRIVER_SIGTERM_AT + 1,
                                   'n_resumed': per_epoch - MUON_DRIVER_SIGTERM_AT - 1},
               f'drivers: Muon runs took {muon["updates"]} updates')
-        check(row['launches']['muon_m']['flash_attention'] == depth * (2 + 2 * 2),
+        check(row['launches']['muon_m']['flash_attention'] == MUON_DRIVER_DEPTH * (2 + 2 * 2),
               f'drivers: Muon run M wrapper launches {row["launches"]["muon_m"]}')
         with open(os.path.join(out, 'm', 'summary.csv')) as f:
             m_rows = list(csv.DictReader(f))
@@ -1973,6 +2054,10 @@ def phase_train_breakdown(task, batch):
 
 # phase train_graph: step 7 of the 20 is a non-finite batch the guard skips
 TRAIN_GRAPH_NAN_STEP = 7
+# phase train_graph's untimed arms (accumulation 2, SGD, Muon, lookahead)
+# run ViT-B/16 at this depth, so that the whole script stays inside its
+# time limit with the NaFlex phases; the timed AdamW arm keeps all 12
+TRAIN_GRAPH_CUT_DEPTH = 6
 TRAIN_GRAPH_ODD_BATCH = 37
 
 
@@ -2097,7 +2182,7 @@ def _graph_vs_eager(opt_name: str, accum: int, batches, nan_batch, timed: bool,
                    else 'not measured',
                    replay_idle_share=1 - sum(graph_k.values()) / graph_wall if graph_k
                    else 'not measured',
-                   replayed_kernels_per_step=_per_step(graph_counts, reps),
+                   replayed_kernels_per_step=_per_step(graph_counts),
                    graph_pool_bytes=task.train_graphs.pool_bytes(),
                    graph_static_input_bytes=task.train_graphs.static_bytes())
     return row, task
@@ -2142,7 +2227,10 @@ def phase_train_graph():
     rows = []
     for opt_name, accum, opt_kw in TRAIN_GRAPH_ARMS:
         timed = (opt_name, accum) == ('adamw', 1)
-        row, task = _graph_vs_eager(opt_name, accum, batches, nan_batch, timed, opt_kw=opt_kw)
+        # the untimed arms run ViT-B/16 cut to TRAIN_GRAPH_CUT_DEPTH blocks
+        row, task = _graph_vs_eager(opt_name, accum, batches, nan_batch, timed, opt_kw=opt_kw,
+                                    model_kw=None if timed else {'depth': TRAIN_GRAPH_CUT_DEPTH})
+        row['depth'] = len(task.model.blocks)
         if timed:
             row['eval_graph_equals_eager'] = _eval_graph_vs_eager(task)
             row['eval_graph_captures'] = task.eval_graphs.captures
@@ -2238,7 +2326,7 @@ def phase_muon_train():
     reps = 3
     kernels, counts, prof_wall_ms = _profile_kernels(
         lambda: task.train_step(batch, lr=1e-5, step=TRAIN_STEPS + 1), reps)
-    replayed = _per_step(counts, reps)
+    replayed = _per_step(counts)
     busy = sum(kernels.values())
     losses = [float(m['loss']) for m in metrics]
     last = metrics[-1]
@@ -2447,7 +2535,7 @@ def phase_convnext_depthwise():
     return total
 
 
-def _families(kernels, counts, reps: int):
+def _families(kernels, counts):
     """Device ms and kernel counts per call by kernel family: the depthwise
     convolution's forward and backward (cuDNN's depthwise kernels), the
     other convolutions, GEMMs, layout transposes, copies and casts, the
@@ -2471,7 +2559,7 @@ def _families(kernels, counts, reps: int):
         else:
             fam = 'norm_elementwise_reduce'
         ms[fam] = ms.get(fam, 0.0) + t
-        n[fam] = n.get(fam, 0) + counts[name] / reps
+        n[fam] = n.get(fam, 0) + counts[name]
     return {'ms': ms, 'kernels': n}
 
 
@@ -2551,7 +2639,7 @@ def phase_convnext_serve():
         graphs[64].static_in.copy_(torch.from_numpy(_images(64, seed=3)).cuda())
         kernels, counts, replay_wall_ms = _profile_kernels(graphs[64].graph.replay, reps)
     busy = sum(kernels.values())
-    fams = _families(kernels, counts, reps)
+    fams = _families(kernels, counts)
     errs = [rel_l2(served[j], direct[j]) for j in range(n)]
     prewarm = stats['prewarm'][CONVNEXT]
     moved = {k: fn.launches - before[k] for k, fn in counters.items() if fn.launches != before[k]}
@@ -2568,7 +2656,7 @@ def phase_convnext_serve():
           'profiled_bucket': 64, 'replay_wall_ms': replay_wall_ms,
           'replay_device_ms': busy if kernels else 'not measured',
           'replay_idle_share': 1.0 - busy / replay_wall_ms if kernels else 'not measured',
-          'replay_kernels_per_forward': sum(counts.values()) / reps if kernels
+          'replay_kernels_per_forward': sum(counts.values()) if kernels
           else 'not measured',
           'replay_ms_by_family': fams['ms'], 'replay_kernels_by_family': fams['kernels'],
           'top_kernels': [{'kernel': k[:120], 'ms': v} for k, v in top]})
@@ -2636,9 +2724,9 @@ def phase_convnext_train():
     reps = 3
     kernels, counts, prof_wall_ms = _profile_kernels(
         lambda: task.train_step(batch, lr=1e-5, step=TRAIN_STEPS + 1), reps)
-    replayed = _per_step(counts, reps)
+    replayed = _per_step(counts)
     busy = sum(kernels.values())
-    fams = _families(kernels, counts, reps)
+    fams = _families(kernels, counts)
     losses = [float(m['loss']) for m in metrics]
     row = {'phase': 'convnext_train', 'model': CONVNEXT, 'dtype': 'bfloat16',
            'batch': TRAIN_BATCH, 'steps': TRAIN_STEPS, 'drop_path_rate': CONVNEXT_DROP_PATH,
@@ -2735,9 +2823,8 @@ print(json.dumps({'rc': rc, 'counts': counts, 'launches': {
 
 def phase_convnext_drivers():
     """``python -m timm_tpu_torch.train --model convnext_base``'s ``main(argv)``
-    under torch.profiler in a subprocess, from a folder of seeded PNGs
-    written as phase input_train writes its own (576 train, 192
-    validation): --device-augment with 'const' erasing and Mixup / CutMix,
+    under torch.profiler in a subprocess, from the seeded PNGs of
+    ``_image_data`` (576 train, 192 validation): --device-augment with 'const' erasing and Mixup / CutMix,
     one epoch of 9 updates, EMA; the profiler must see the augment-epilogue
     and fused AdamW kernels run once an update. Then ``validate`` on its
     EMA weights in this process, whose loss must be within
@@ -2756,10 +2843,8 @@ def phase_convnext_drivers():
     row = {'phase': 'convnext_drivers', 'model': CONVNEXT, 'dtype': 'bfloat16',
            'flags': ' '.join(CONVNEXT_DRIVER_FLAGS), 'wall_s': {}, 'launches': {}}
     try:
-        data, out = os.path.join(tmp, 'data'), os.path.join(tmp, 'out')
-        n_train = _write_image_folder(os.path.join(data, 'train'), INPUT_IMAGES_PER_CLASS)
-        n_val = _write_image_folder(os.path.join(data, 'validation'), DRIVER_VALIDATION_PER_CLASS,
-                                    seed=1)
+        data, out = _image_data(), os.path.join(tmp, 'out')
+        n_train, n_val = _IMAGE_DATA['train'], _IMAGE_DATA['validation']
         updates = n_train // TRAIN_BATCH
         row.update(train_images=n_train, validation_images=n_val, updates=updates)
         t0 = time.perf_counter()
@@ -3018,20 +3103,22 @@ def phase_effnet_model():
 
 def phase_effnet_serve():
     """The engine serving efficientnetv2_s in bf16 (running statistics
-    calibrated on the card): ``_bn_serve``."""
+    calibrated on the card): ``_graph_serve``."""
     import torch
-    _bn_serve('effnet_serve', EFFNET, lambda: _effnet('cuda', torch.bfloat16), EFFNET_SIZE)
+    _graph_serve('effnet_serve', EFFNET, lambda: _effnet('cuda', torch.bfloat16), EFFNET_SIZE)
 
 
-def _bn_serve(phase: str, name: str, factory, size: int):
-    """The engine serving a BatchNorm model ``name`` (``factory`` builds it
-    on the card), one CUDA graph per bucket captured at add_model, in eval
-    mode: 200 requests of ``size`` px images in the bursts of phase serve;
-    served rows against their direct forward; each bucket's replay bit for
-    bit against an eager forward; eager and replayed forward ms per bucket;
+def _graph_serve(phase: str, name: str, factory, size: int, flash_per_forward: int = 0):
+    """The engine serving model ``name`` (``factory`` builds it on the
+    card), one CUDA graph per bucket captured at add_model, in eval mode:
+    200 requests of ``size`` px images in the bursts of phase serve; served
+    rows against their direct forward; each bucket's replay bit for bit
+    against an eager forward; eager and replayed forward ms per bucket;
     under torch.profiler 3 replays of bucket 64 by kernel family, with the
-    idle share. No kernel of the port lies on this path: the wrappers'
-    counts must not move."""
+    idle share. With ``flash_per_forward`` 0 no kernel of the port lies on
+    the path and the wrappers' counts must not move; else each bucket graph
+    captured that many flash launches, only the flash wrapper moved (at the
+    prewarm) and a profiled replay runs that many flash kernels."""
     import torch
     from timm_tpu_torch import InferenceEngine
     from timm_tpu_torch.kernels import registry
@@ -3070,7 +3157,7 @@ def _bn_serve(phase: str, name: str, factory, size: int):
         graphs[64].static_in.copy_(torch.from_numpy(_images(64, size=size, seed=3)).cuda())
         kernels, counts, replay_wall_ms = _profile_kernels(graphs[64].graph.replay, reps)
     busy = sum(kernels.values())
-    fams = _families(kernels, counts, reps)
+    fams = _families(kernels, counts)
     errs = [rel_l2(served[j], direct[j]) for j in range(n)]
     prewarm = stats['prewarm'][name]
     moved = {k: fn.launches - before[k] for k, fn in counters.items() if fn.launches != before[k]}
@@ -3088,7 +3175,7 @@ def _bn_serve(phase: str, name: str, factory, size: int):
           'profiled_bucket': 64, 'replay_wall_ms': replay_wall_ms,
           'replay_device_ms': busy if kernels else 'not measured',
           'replay_idle_share': 1.0 - busy / replay_wall_ms if kernels else 'not measured',
-          'replay_kernels_per_forward': sum(counts.values()) / reps if kernels
+          'replay_kernels_per_forward': sum(counts.values()) if kernels
           else 'not measured',
           'replay_ms_by_family': fams['ms'], 'replay_kernels_by_family': fams['kernels'],
           'top_kernels': [{'kernel': k[:120], 'ms': v} for k, v in top]})
@@ -3101,7 +3188,18 @@ def _bn_serve(phase: str, name: str, factory, size: int):
           f'{phase}: replays {stats["replays_by_bucket"]} for steps {stats["steps_by_bucket"]}')
     check(prewarm['mode'] == 'graph' and prewarm['programs'] == len(SERVE_BUCKETS),
           f'{phase}: prewarm captured {prewarm["programs"]} graphs ({prewarm["mode"]})')
-    check(not moved, f'{phase}: the port\'s kernels launched {moved}')
+    if flash_per_forward:
+        captured = [g.launches for g in graphs.values()]
+        replayed_flash = sum(c for k, c in counts.items() if 'flash_fwd_kernel' in k)
+        check(all(c == {'flash_attention': flash_per_forward} for c in captured),
+              f'{phase}: the bucket graphs captured {captured}')
+        check(set(moved) == {'flash_attention'}
+              and moved['flash_attention'] >= flash_per_forward * len(SERVE_BUCKETS),
+              f'{phase}: wrapper launches {moved} at the prewarm')
+        check(replayed_flash == flash_per_forward,
+              f'{phase}: a profiled replay ran {replayed_flash} flash kernels')
+    else:
+        check(not moved, f'{phase}: the port\'s kernels launched {moved}')
     check(bool(np.isfinite(served).all()), f'{phase}: non-finite logits')
     check(max(errs) <= SERVE_REL_L2_TOL, f'{phase}: max rel L2 {max(errs)} > {SERVE_REL_L2_TOL}')
     check(all(replay_equal.values()), f'{phase}: replay vs eager bit for bit: {replay_equal}')
@@ -3109,6 +3207,7 @@ def _bn_serve(phase: str, name: str, factory, size: int):
     del engine, res, model, graphs
     gc.collect()
     torch.cuda.empty_cache()
+    return moved
 
 
 def _effnet_module_families(x):
@@ -3243,9 +3342,9 @@ def phase_effnet_train():
     reps = 3
     kernels, counts, prof_wall_ms = _profile_kernels(
         lambda: task.train_step(batch, lr=1e-5, step=TRAIN_STEPS + 1), reps)
-    replayed = _per_step(counts, reps)
+    replayed = _per_step(counts)
     busy = sum(kernels.values())
-    fams = _families(kernels, counts, reps)
+    fams = _families(kernels, counts)
     adamw_ms = sum(v for k, v in kernels.items() if 'fused_adamw' in k)
     losses = [float(m['loss']) for m in metrics]
     row = {'phase': 'effnet_train', 'model': EFFNET, 'size': EFFNET_SIZE, 'dtype': 'bfloat16',
@@ -3351,8 +3450,8 @@ def phase_effnet_train():
 
 def phase_effnet_drivers():
     """``python -m timm_tpu_torch.train --model efficientnetv2_s``'s
-    ``main(argv)`` from a folder of seeded PNGs written as phase
-    input_train writes its own (576 train, 192 validation): --device-augment
+    ``main(argv)`` from the seeded PNGs of ``_image_data`` (576 train, 192
+    validation): --device-augment
     with 'const' erasing (the augment-epilogue kernel) and Mixup / CutMix,
     drop path and dropout 0.2, EMA, one epoch of 9 updates: run A
     uninterrupted, run B stopped by SIGTERM after update 4 and run C
@@ -3361,7 +3460,6 @@ def phase_effnet_drivers():
     ``validate`` on A's EMA weights and statistics, whose loss must be
     within DRIVER_EVAL_REL_TOL of A's last EMA evaluation. The wrappers'
     counts are read around each run."""
-    import contextlib
     import csv
     import shutil
     import tempfile
@@ -3376,21 +3474,9 @@ def phase_effnet_drivers():
            'flags': ' '.join(EFFNET_DRIVER_FLAGS), 'sigterm_at': EFFNET_DRIVER_SIGTERM_AT,
            'wall_s': {}, 'launches': {}}
 
-    def run(fn, argv):
-        for k in kernels:
-            k.launches = 0
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(sys.stderr):
-            result = fn(argv)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        return result, time.perf_counter() - t0, {k.__name__: k.launches for k in kernels}
-
     try:
-        data, out = os.path.join(tmp, 'data'), os.path.join(tmp, 'out')
-        n_train = _write_image_folder(os.path.join(data, 'train'), INPUT_IMAGES_PER_CLASS)
-        n_val = _write_image_folder(os.path.join(data, 'validation'), DRIVER_VALIDATION_PER_CLASS,
-                                    seed=1)
+        data, out = _image_data(), os.path.join(tmp, 'out')
+        n_train, n_val = _IMAGE_DATA['train'], _IMAGE_DATA['validation']
         updates = n_train // TRAIN_BATCH
         row.update(train_images=n_train, validation_images=n_val, updates=updates)
 
@@ -3401,7 +3487,7 @@ def phase_effnet_drivers():
                            ('b', train_argv('b', '--fault-inject',
                                             f'sigterm@{EFFNET_DRIVER_SIGTERM_AT}')),
                            ('c', train_argv('b', '--resume', 'auto'))):
-            rc, wall, launches = run(train.main, argv)
+            rc, wall, launches = _run_driver(train.main, argv, kernels)
             row['wall_s'][name], row['launches'][name] = wall, launches
             check(rc == 0, f'effnet_drivers: run {name.upper()} exited {rc}')
             check(launches['fused_adamw'] >= 1 and launches['augment_epilogue'] >= 1
@@ -3420,8 +3506,8 @@ def phase_effnet_drivers():
         del ckpt_a, ckpt_c
         eval_argv = ['--model', EFFNET, '--checkpoint', os.path.join(out, 'a', 'last.npz'),
                      '--use-ema', '--amp', '-b', '64', '--workers', '6', '--data-dir', data]
-        val, wall, launches = run(lambda argv: validate.validate(validate.parser.parse_args(argv)),
-                                  eval_argv)
+        val, wall, launches = _run_driver(
+            lambda argv: validate.validate(validate.parser.parse_args(argv)), eval_argv, kernels)
         row['wall_s']['validate'], row['launches']['validate'] = wall, launches
         row['validate'] = {'loss': val['loss'], 'top1': val['top1'], 'img_per_s': val['img_per_s']}
         check(row['running_statistics_in_checkpoint'] == 2 * EFFNET_BATCHNORMS,
@@ -3473,6 +3559,10 @@ RESNET_NEW_OPTIMIZERS = (
     'adopt', 'adan', 'adafactor', 'adafactorbv', 'novograd', 'nvnovograd', 'yogi', 'sm3',
     'adadelta', 'adagrad', 'sgdw', 'sgdp', 'momentum', 'adamp', 'lookahead')
 RESNET_OPT_BATCH, RESNET_OPT_STEPS = 8, 5
+# the optimizer arms' resnet50 cut to one bottleneck a stage (the widths and
+# every kind of leaf kept), so that the whole script stays inside its time
+# limit with the NaFlex phases
+RESNET_OPT_LAYERS = (1, 1, 1, 1)
 RESNET_OPT_TOL = 1e-5
 # timm's ResNet-50 JSD + RandAugment recipe (without --resplit and
 # --dist-bn, which the JAX script lacks), with EMA for the validate check
@@ -3577,13 +3667,13 @@ def phase_resnet_model():
 
 def phase_resnet_serve():
     """The engine serving resnet50 in bf16 (running statistics calibrated
-    on the card): ``_bn_serve``."""
+    on the card): ``_graph_serve``."""
     import torch
-    _bn_serve('resnet_serve', RESNET, lambda: _resnet('cuda', torch.bfloat16), RESNET_SIZE)
+    _graph_serve('resnet_serve', RESNET, lambda: _resnet('cuda', torch.bfloat16), RESNET_SIZE)
 
 
 def _optimizer_arm(opt_name: str, models, batches, nan_batch):
-    """One optimizer name on resnet50 (``models``: the card's bf16 model for
+    """One optimizer name on resnet50 at RESNET_OPT_LAYERS (``models``: the card's bf16 model for
     the train step, and fp32 copies on the CPU and the card): RESNET_OPT_STEPS
     steps in the captured step against its eager body (``_graph_vs_eager``,
     the 4th non-finite); one update on the card against the CPU in fp32
@@ -3669,7 +3759,7 @@ def phase_resnet_train():
     kernels, counts, prof_wall_ms = _profile_kernels(
         lambda: task.train_step(batch, lr=1e-5, step=TRAIN_STEPS + 1), reps)
     busy = sum(kernels.values())
-    fams = _families(kernels, counts, reps)
+    fams = _families(kernels, counts)
     losses = [float(m['loss']) for m in metrics]
     row = {'phase': 'resnet_train', 'model': RESNET, 'size': RESNET_SIZE, 'dtype': 'bfloat16',
            'batch': TRAIN_BATCH, 'steps': TRAIN_STEPS, 'optimizer': 'sgd (nesterov 0.9)',
@@ -3750,7 +3840,7 @@ def phase_resnet_train():
         adamw_steps.append(fused_adamw.launches - a0)
     a_kernels, a_counts, _ = _profile_kernels(lambda: task.train_step(batch, lr=1e-5, step=6), 2)
     row['adamw_arm'] = {'wrapper_fused_adamw_launches_per_step': adamw_steps,
-                        'replayed_kernels_per_step': _per_step(a_counts, 2) if a_kernels
+                        'replayed_kernels_per_step': _per_step(a_counts) if a_kernels
                         else 'not measured',
                         'fused_adamw_replayed_ms': sum(v for k, v in a_kernels.items()
                                                        if 'fused_adamw' in k)}
@@ -3760,10 +3850,11 @@ def phase_resnet_train():
     torch.cuda.empty_cache()
 
     # every optimizer name this slice adds
-    models = {'cpu': _damp_resnet(timm_tpu_torch.create_model(RESNET, device='cpu', seed=0)),
+    cut = dict(seed=0, layers=RESNET_OPT_LAYERS)
+    models = {'cpu': _damp_resnet(timm_tpu_torch.create_model(RESNET, device='cpu', **cut)),
               'train': _damp_resnet(timm_tpu_torch.create_model(
-                  RESNET, device='cuda', seed=0, dtype=torch.bfloat16))}
-    models['cuda'] = timm_tpu_torch.create_model(RESNET, device='cuda', seed=0)
+                  RESNET, device='cuda', dtype=torch.bfloat16, **cut))}
+    models['cuda'] = timm_tpu_torch.create_model(RESNET, device='cuda', **cut)
     models['cuda'].load_state_dict(models['cpu'].state_dict())
     opt_batches = [_train_batch(RESNET_OPT_BATCH, 70 + i, 'cuda', size=RESNET_SIZE)
                    for i in range(2)]
@@ -3818,7 +3909,7 @@ def phase_resnet_drivers():
     """The train driver's main(argv) with timm's ResNet-50 JSD + RandAugment
     recipe (RESNET_DRIVER_FLAGS: 3 AugMix splits, the JSD loss, split BN,
     'pixel' erasing 0.6 on the host, cosine, lr 0.05, bf16) over the folder
-    of seeded PNGs phase input_train writes (576 train, 192 validation): 9
+    of the seeded PNGs of ``_image_data`` (576 train, 192 validation): 9
     updates of 3 x 64 images; run A uninterrupted, run B stopped by SIGTERM
     after update 4, run C resumed from it with --resume auto, C's last.npz
     held to A's bit for bit (weights, EMA, momentum, primary and aux
@@ -3828,7 +3919,6 @@ def phase_resnet_drivers():
     the test-time pool head at crop 1.0; and ``inference`` at that size,
     whose top-1 must agree with validate's at that size without the head.
     The wrappers' counts are read around each run."""
-    import contextlib
     import csv
     import shutil
     import tempfile
@@ -3843,21 +3933,9 @@ def phase_resnet_drivers():
            'flags': ' '.join(RESNET_DRIVER_FLAGS), 'sigterm_at': RESNET_DRIVER_SIGTERM_AT,
            'wall_s': {}, 'launches': {}}
 
-    def run(fn, argv):
-        for k in kernels:
-            k.launches = 0
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(sys.stderr):
-            result = fn(argv)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        return result, time.perf_counter() - t0, {k.__name__: k.launches for k in kernels}
-
     try:
-        data, out = os.path.join(tmp, 'data'), os.path.join(tmp, 'out')
-        n_train = _write_image_folder(os.path.join(data, 'train'), INPUT_IMAGES_PER_CLASS)
-        n_val = _write_image_folder(os.path.join(data, 'validation'), DRIVER_VALIDATION_PER_CLASS,
-                                    seed=1)
+        data, out = _image_data(), os.path.join(tmp, 'out')
+        n_train, n_val = _IMAGE_DATA['train'], _IMAGE_DATA['validation']
         row.update(train_images=n_train, validation_images=n_val, updates=n_train // 64)
 
         def train_argv(experiment, *extra):
@@ -3867,7 +3945,7 @@ def phase_resnet_drivers():
                            ('b', train_argv('b', '--fault-inject',
                                             f'sigterm@{RESNET_DRIVER_SIGTERM_AT}')),
                            ('c', train_argv('b', '--resume', 'auto'))):
-            rc, wall, launches = run(train.main, argv)
+            rc, wall, launches = _run_driver(train.main, argv, kernels)
             row['wall_s'][name], row['launches'][name] = wall, launches
             check(rc == 0, f'resnet_drivers: run {name.upper()} exited {rc}')
             check(not any(launches.values()),
@@ -3886,23 +3964,25 @@ def phase_resnet_drivers():
         del ckpt_a, ckpt_c
         eval_argv = ['--model', RESNET, '--checkpoint', os.path.join(out, 'a', 'last.npz'),
                      '--use-ema', '--amp', '-b', '64', '--workers', '6', '--data-dir', data]
-        val, wall, launches = run(lambda argv: validate.validate(validate.parser.parse_args(argv)),
-                                  eval_argv)
+        val, wall, launches = _run_driver(
+            lambda argv: validate.validate(validate.parser.parse_args(argv)), eval_argv, kernels)
         row['wall_s']['validate'], row['launches']['validate'] = wall, launches
         row['validate'] = {'loss': val['loss'], 'top1': val['top1'], 'img_per_s': val['img_per_s'],
                            'test_time_pool': val['test_time_pool']}
         at_288 = eval_argv + ['--img-size', str(RESNET_POOL_SIZE)]
         predictions = []
-        plain, wall, _ = run(lambda argv: validate.validate(validate.parser.parse_args(argv),
-                                                            predictions), at_288)
-        pooled, wall_p, _ = run(lambda argv: validate.validate(validate.parser.parse_args(argv)),
-                                at_288 + ['--test-pool'])
+        plain, wall, _ = _run_driver(
+            lambda argv: validate.validate(validate.parser.parse_args(argv), predictions), at_288,
+            kernels)
+        pooled, wall_p, _ = _run_driver(
+            lambda argv: validate.validate(validate.parser.parse_args(argv)),
+            at_288 + ['--test-pool'], kernels)
         row['wall_s']['validate_test_pool'] = wall_p
         row['validate_288'] = {'loss': plain['loss'], 'top1': plain['top1']}
         row['validate_test_pool'] = {k: pooled[k] for k in ('loss', 'top1', 'crop_pct',
                                                              'test_time_pool', 'img_size')}
-        rc_i, wall_i, _ = run(inference.main, at_288 + [
-            '--topk', '5', '--output-dir', os.path.join(tmp, 'inf')])
+        rc_i, wall_i, _ = _run_driver(inference.main, at_288 + [
+            '--topk', '5', '--output-dir', os.path.join(tmp, 'inf')], kernels)
         row['wall_s']['inference'] = wall_i
         with open(os.path.join(tmp, 'inf', f'{RESNET}-results.csv')) as f:
             inf_rows = list(csv.DictReader(f))
@@ -3928,6 +4008,766 @@ def phase_resnet_drivers():
     return {k.__name__: sum(r[k.__name__] for r in row['launches'].values()) for k in kernels}
 
 
+# ---- NaFlex and differential attention: naflexvit_base_patch16_gap and
+# vit_dlittle_patch16_reg1_gap_256 ---------------------------------------------
+
+NAFLEX = 'naflexvit_base_patch16_gap'
+NAFLEX_SERVE_SIZE = 384                   # its cfg's input size: N 576, every token valid
+NAFLEX_SEQ_LENS = (128, 256, 576, 784, 1024)
+NAFLEX_MAX_SEQ_LEN = 576
+NAFLEX_BATCH = 64                         # at max_seq_len: a budget of 36,864 tokens
+NAFLEX_MODEL_VALID = (576, 401, 200, 64)  # valid tokens of the 4 rows at L 576
+NAFLEX_IMAGES_PER_CLASS = 192             # 576 training PNGs, 96-640 px a side
+NAFLEX_VAL_PER_CLASS = 21                 # 63 validation PNGs: one eval batch, wrapped to 64
+NAFLEX_SIDES = (96, 640)
+NAFLEX_FP32_TOL = 1e-4                    # the card's fp32 vs the CPU's fp32
+NAFLEX_MAX_EPOCHS = 16                    # naflex_train stops once every bucket is checked
+# naflex_train's loader seed: its schedule replays every bucket after another
+# one by its 11th update, in epoch 2 (1,222 images; seed 0 takes 27 updates
+# over 5 epochs)
+NAFLEX_LOADER_SEED = 388
+NAFLEX_LR = 1e-3
+# the drivers' budget: 32 images at 576 (18,432 tokens), over 384 of the
+# train images (128 a class). At naflex_train's
+# 36,864 the five bucket graphs' shared pool holds about 50 GB, and a new
+# bucket's eager warm-up beside it left the train driver, with its eval
+# graphs and EMA, short of the card's 80 GB
+NAFLEX_DRIVER_BATCH = 32
+# one epoch of the drivers' seed-3 schedule (7 updates) visits all five
+# buckets: 1024, 576, 1024, 128, 784, 256, 784
+NAFLEX_DRIVER_EPOCHS = 1
+NAFLEX_DRIVER_PER_CLASS = 128
+NAFLEX_DRIVER_FLAGS = [
+    '--model', NAFLEX, '--naflex-loader', '--naflex-train-seq-lens',
+    *(str(n) for n in NAFLEX_SEQ_LENS), '--naflex-max-seq-len', str(NAFLEX_MAX_SEQ_LEN),
+    '-b', str(NAFLEX_DRIVER_BATCH), '--amp', '--epochs', str(NAFLEX_DRIVER_EPOCHS), '--opt', 'adamw',
+    '--lr', '1e-3', '--weight-decay', '0.05', '--sched', 'cosine', '--warmup-epochs', '0',
+    '--clip-grad', '1.0',
+    '--mixup', '0.8', '--cutmix', '1.0', '--smoothing', '0.1', '--reprob', '0.25',
+    '--remode', 'pixel', '--device-augment', '--device-prefetch', '2', '--drop-path', '0.1',
+    '--seed', '3', '--log-interval', '1', '--checkpoint-hist', '1']
+NAFLEX_DRIVER_SIGTERM_AT = 3              # in epoch 0: C regenerates the batches B consumed
+DLITTLE = 'vit_dlittle_patch16_reg1_gap_256'
+DLITTLE_SIZE = 256
+DLITTLE_GRAD_BATCH = 4
+DLITTLE_TRAIN_STEPS = 20
+DLITTLE_DRIVER_FLAGS = [
+    '--model', DLITTLE, '--amp', '-b', '64', '--epochs', '1', '--opt', 'adamw', '--lr', '1e-3',
+    '--weight-decay', '0.05', '--sched', 'cosine', '--warmup-epochs', '0', '--mixup', '0.8',
+    '--cutmix', '1.0', '--smoothing', '0.1', '--reprob', '0.25', '--remode', 'const',
+    '--device-augment', '--device-prefetch', '2', '--workers', '6', '--drop-path', '0.1',
+    '--seed', '0', '--log-interval', '1', '--checkpoint-hist', '1']
+
+_NAFLEX_DATA = {}
+
+
+def _naflex_data() -> str:
+    """The NaFlex phases' folder of seeded PNGs of mixed sizes and aspect
+    ratios, 96-640 px a side: train/ (576) and validation/ (129), written
+    once into a temp dir that main removes."""
+    import tempfile
+    if 'root' not in _NAFLEX_DATA:
+        root = tempfile.mkdtemp(prefix='chip_smoke_naflex_')
+        _NAFLEX_DATA['root'] = root
+        t0 = time.perf_counter()
+        _NAFLEX_DATA['train'] = _write_image_folder(
+            os.path.join(root, 'train'), NAFLEX_IMAGES_PER_CLASS, seed=2, sides=NAFLEX_SIDES)
+        _NAFLEX_DATA['validation'] = _write_image_folder(
+            os.path.join(root, 'validation'), NAFLEX_VAL_PER_CLASS, seed=3, sides=NAFLEX_SIDES)
+        _NAFLEX_DATA['write_s'] = time.perf_counter() - t0
+    return _NAFLEX_DATA['root']
+
+
+def _naflex_batch(valid_rows, seq_len: int, seed: int, num_classes: int = 1000):
+    """A NaFlex dict batch (numpy): seeded patches of N(0, 0.5), row i's
+    first valid_rows[i] tokens valid on a grid ceil(sqrt(n)) wide, the rest
+    zero padding; integer targets."""
+    rng = np.random.default_rng(seed)
+    B = len(valid_rows)
+    patches = (0.5 * rng.standard_normal((B, seq_len, 768))).astype(np.float32)
+    coord = np.zeros((B, seq_len, 2), np.int32)
+    valid = np.zeros((B, seq_len), bool)
+    for i, n in enumerate(valid_rows):
+        gw = int(np.ceil(np.sqrt(n)))
+        j = np.arange(n)
+        coord[i, :n, 0], coord[i, :n, 1] = j // gw, j % gw
+        valid[i, :n] = True
+        patches[i, n:] = 0.0
+    return {'patches': patches, 'patch_coord': coord, 'patch_valid': valid,
+            'target': rng.integers(0, num_classes, B)}
+
+
+def _to_device(batch, device):
+    import torch
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+
+
+def _naflex_model(device, dtype=None, **kw):
+    import timm_tpu_torch
+    return timm_tpu_torch.create_model(NAFLEX, dtype=dtype, seed=0, device=device, **kw)
+
+
+def _attn_inputs(model, run):
+    """[(attention module, its input, its mask)] of every block of
+    ``model`` as ``run()`` calls them."""
+    got = []
+
+    def hook(mod, args, kwargs):
+        got.append((mod, args[0].detach().clone(), kwargs.get('attn_mask')))
+    hooks = [blk.attn.register_forward_pre_hook(hook, with_kwargs=True) for blk in model.blocks]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return got
+
+
+def phase_naflex_model():
+    """naflexvit_base_patch16_gap uncut (embed 768, 12 heads, 12 blocks, D
+    64), seed-0 weights, 4 rows at L 576 with 576 / 401 / 200 / 64 valid
+    tokens: bf16 on the card against fp32 on the CPU (logits, valid
+    tokens), fp32 on the card against the CPU, 12 flash kernels a forward;
+    and in both mask modes every block's attention on the card (the flash
+    kernel, with JAX's value in the padded query rows in 'symmetric' mode)
+    against the plain version (``_sdpa`` with the dense mask JAX builds),
+    valid and padded query rows apart."""
+    import torch
+    from timm_tpu_torch.kernels import flash_attention, registry
+    from timm_tpu_torch.layers.attention import _sdpa, scaled_dot_product_attention
+    batch = _naflex_batch(NAFLEX_MODEL_VALID, NAFLEX_MAX_SEQ_LEN, seed=0)
+    inputs = {k: batch[k] for k in ('patches', 'patch_coord', 'patch_valid')}
+    valid = batch['patch_valid']
+
+    def features_and_logits(model, device):
+        b = _to_device(inputs, device)
+        with torch.inference_mode():
+            f = model.forward_features(b['patches'], b['patch_coord'], b['patch_valid'])
+            return f.float().cpu().numpy(), model(b).float().cpu().numpy()
+
+    t0 = time.perf_counter()
+    f_cpu, l_cpu = features_and_logits(_naflex_model('cpu').eval(), 'cpu')
+    row = {'phase': 'naflex_model', 'model': NAFLEX, 'batch': len(NAFLEX_MODEL_VALID),
+           'seq_len': NAFLEX_MAX_SEQ_LEN, 'valid_tokens': list(NAFLEX_MODEL_VALID),
+           'cpu_fp32_seconds': time.perf_counter() - t0}
+    tol = registry.get('flash_attention').parity_tol
+    try:
+        for dtype, limit in ((torch.bfloat16, MODEL_REL_L2_TOL), (torch.float32, NAFLEX_FP32_TOL)):
+            name = str(dtype).replace('torch.', '')
+            card = _naflex_model('cuda', dtype).eval()
+            features_and_logits(card, 'cuda')  # first call: kernel and library set-up
+            flash_attention.launches = 0
+            f_card, l_card = features_and_logits(card, 'cuda')
+            launches = flash_attention.launches
+            err_logits = rel_l2(l_card, l_cpu)
+            err_tokens = rel_l2(f_card[valid], f_cpu[valid])
+            finite = bool(np.isfinite(l_card).all() and np.isfinite(f_card).all())
+            row[name] = {'rel_l2_logits_vs_cpu_fp32': err_logits,
+                         'rel_l2_valid_tokens_vs_cpu_fp32': err_tokens, 'tol': limit,
+                         'flash_launches_two_forwards': launches, 'finite': finite}
+            check(finite, f'naflex_model: non-finite {name} output on the card')
+            check(l_card.shape == (4, 1000), f'naflex_model: logits shape {l_card.shape}')
+            check(err_logits <= limit and err_tokens <= limit,
+                  f'naflex_model: {name} rel L2 logits {err_logits}, valid tokens {err_tokens} '
+                  f'> {limit}')
+            check(launches == 2 * len(card.blocks),
+                  f'naflex_model: {launches} flash launches in two {name} forwards')
+            if dtype != torch.bfloat16:
+                continue
+            b = _to_device(inputs, 'cuda')
+            for mode in ('symmetric', 'key'):
+                card.mask_mode = mode
+                flash_attention.launches = 0
+                worst = {'valid_rows': 0.0, 'padded_rows': 0.0}
+                with torch.inference_mode():
+                    got = _attn_inputs(card, lambda: card(b))
+                    fwd_launches = flash_attention.launches
+                    for attn, x, mask in got:
+                        B, N, C = x.shape
+                        q, k, v = attn.qkv(x).reshape(B, N, 3, attn.num_heads, attn.head_dim) \
+                            .permute(2, 0, 3, 1, 4).unbind(0)
+                        out = scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=attn.scale)
+                        plain = _sdpa(q, k, v, mask.dense(), scale=attn.scale)
+                        diff = (out.float() - plain.float()).abs().amax(dim=(1, 3))  # (B, N)
+                        worst['valid_rows'] = max(worst['valid_rows'], float(diff[mask.valid].max()))
+                        worst['padded_rows'] = max(worst['padded_rows'],
+                                                   float(diff[~mask.valid].max()))
+                row[f'{mode}_attention_vs_plain'] = dict(worst, tol=tol,
+                                                         flash_launches_one_forward=fwd_launches)
+                check(fwd_launches == len(card.blocks),
+                      f'naflex_model: {fwd_launches} flash launches in a {mode} forward')
+                check(max(worst.values()) <= tol,
+                      f'naflex_model: {mode} attention vs plain {worst} > {tol}')
+            del card, b, got
+            torch.cuda.empty_cache()
+    finally:
+        emit(row)
+
+
+def phase_naflex_serve():
+    """The engine serving naflexvit_base_patch16_gap in bf16 at 384 px NHWC
+    (N 576, every token valid: the flash kernel with no mask), one CUDA
+    graph per bucket: ``_graph_serve``."""
+    import torch
+    moved = _graph_serve('naflex_serve', NAFLEX, lambda: _naflex_model('cuda', torch.bfloat16),
+                         NAFLEX_SERVE_SIZE, flash_per_forward=12)
+    return moved['flash_attention']
+
+
+def _naflex_task(device, dtype, drop_path_rate: float = 0.1, **task_kw):
+    """NaFlexClassificationTask on naflexvit_base_patch16_gap: AdamW (wd
+    0.05, mask), soft targets with smoothing 0.1 after the loader's mixup."""
+    import timm_tpu_torch
+    from timm_tpu_torch.loss import SoftTargetCrossEntropy
+    from timm_tpu_torch.task import NaFlexClassificationTask
+    model = _naflex_model(device, dtype, drop_path_rate=drop_path_rate)
+    opt = timm_tpu_torch.create_optimizer_v2(model, opt='adamw', lr=NAFLEX_LR, weight_decay=0.05)
+    return NaFlexClassificationTask(model, optimizer=opt, train_loss_fn=SoftTargetCrossEntropy(),
+                                    mixup_label_smoothing=0.1, seed=0, **task_kw)
+
+
+def _naflex_host_loader(root):
+    """The NaFlex loader's host part as phase naflex_train runs it."""
+    from timm_tpu_torch.data.dataset_factory import create_dataset
+    from timm_tpu_torch.data.naflex_loader import NaFlexLoader
+    return NaFlexLoader(
+        create_dataset('', root, split='train'), tokens_per_batch=NAFLEX_BATCH * NAFLEX_MAX_SEQ_LEN,
+        seq_lens=NAFLEX_SEQ_LENS, patch_size=16, is_training=True, mean=(0.5,) * 3,
+        std=(0.5,) * 3, mixup_alpha=0.8, cutmix_alpha=1.0, re_prob=0.25, re_mode='pixel',
+        seed=NAFLEX_LOADER_SEED, device_augment=True)
+
+
+def _grads_vs_cpu(make_task, batch):
+    """One step's flat gradients, bf16 on the card against fp32 on the CPU
+    from the same seeded weights: (rel L2, finite on the card, CPU s)."""
+    import torch
+    grads = {}
+    for device, dtype in (('cuda', torch.bfloat16), ('cpu', None)):
+        task = make_task(device, dtype)
+        t0 = time.perf_counter()
+        task.train_step(batch, lr=0.0, step=1)
+        grads[device] = (task.optimizer.flat_grad.float().cpu(), time.perf_counter() - t0)
+        del task
+        torch.cuda.empty_cache()
+    g_card, g_cpu = grads['cuda'][0], grads['cpu'][0]
+    return (float((g_card - g_cpu).norm() / g_cpu.norm()), bool(torch.isfinite(g_card).all()),
+            grads['cpu'][1])
+
+
+def phase_naflex_train():
+    """NaFlexClassificationTask trains naflexvit_base_patch16_gap (bf16,
+    drop path 0.1, AdamW with EMA 0.9998, clip 1.0, cosine lr) from 576
+    seeded PNGs of mixed sizes through the NaFlex loader in budget mode
+    (sequence lengths 128 / 256 / 576 / 784 / 1024 under 36,864 tokens: B
+    288 at 128, 64 at 576, 36 at 1024), with the loader's mixup 0.8 /
+    cutmix 1.0 and 'pixel' erasing 0.25 filled on the card (the augment
+    program, one graph per bucket), the buckets in the loader's random
+    order, until (mid-epoch) every bucket has had a replayed step after
+    another bucket ran (its second step, the capture's replay, or a later one) whose state
+    before and after (and batch, lr, drop generator) were saved to the
+    host; after the run, with its graphs freed (the shared
+    pool and an eager step do not fit in the card together), a fresh task
+    is put in each saved state and runs the eager step body on the same
+    batch, held to the replay bit for bit (metrics, parameters, optimizer
+    state, EMA, sentinel, drop generator). Per bucket: two more replayed
+    steps and the eager one timed with CUDA events, img/s and tokens/s,
+    the host's wait for the batch, a profiled replay (12 flash and 1
+    fused_adamw kernels; idle share), the flash forward and the plain fp32
+    attention backward alone at its shapes, the loader's key-valid
+    fraction; the shared pool; the host loader's img/s alone; then one
+    step's gradients at batch 4 (L 576), bf16 card vs fp32 CPU."""
+    import torch
+    import timm_tpu_torch
+    from timm_tpu_torch.kernels import flash_attention, fused_adamw
+    from timm_tpu_torch.kernels.flash_attention import flash_attention_backward
+    from timm_tpu_torch.kernels.harness import graph_ms
+    from timm_tpu_torch.layers.drop import get_drop_generator
+    root = _naflex_data()
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {'phase': 'naflex_train', 'model': NAFLEX, 'dtype': 'bfloat16',
+           'device_bytes_in_use_at_start': torch.cuda.memory_allocated(),
+           'seq_lens': list(NAFLEX_SEQ_LENS), 'tokens_per_batch': NAFLEX_BATCH * NAFLEX_MAX_SEQ_LEN,
+           'train_images': _NAFLEX_DATA['train'], 'write_images_s': _NAFLEX_DATA['write_s']}
+    try:
+        # the host loader alone over epoch 0's first batch (144 images at N
+        # 256): decode, flip, resize, mixup, patchify, erase masks, collate
+        # (one thread, as the loader runs)
+        host = iter(_naflex_host_loader(root))
+        t0 = time.perf_counter()
+        host_batches = [next(host)]
+        row['loader_img_per_s_alone'] = sum(b['patches'].shape[0] for b in host_batches) / (
+            time.perf_counter() - t0)
+        row['loader_alone_batches'] = [[b['seq_len'], b['patches'].shape[0]] for b in host_batches]
+        del host, host_batches
+
+        task = _naflex_task('cuda', torch.bfloat16, clip_grad=1.0)
+        task.setup_ema(decay=0.9998)
+        gen = get_drop_generator(task.model)
+        from timm_tpu_torch.data.dataset_factory import create_dataset
+        from timm_tpu_torch.data.naflex_loader import create_naflex_loader
+        loader = create_naflex_loader(
+            create_dataset('', root, split='train'), patch_size=16,
+            train_seq_lens=NAFLEX_SEQ_LENS, max_seq_len=NAFLEX_MAX_SEQ_LEN,
+            batch_size=NAFLEX_BATCH, is_training=True, mean=(0.5,) * 3, std=(0.5,) * 3,
+            mixup_alpha=0.8, cutmix_alpha=1.0, re_prob=0.25, re_mode='pixel',
+            seed=NAFLEX_LOADER_SEED, device_augment=True, device_prefetch=2, device='cuda')
+        depth = len(task.model.blocks)
+        # the cosine schedule stepped by update, 5 warm-up updates
+        sched, _ = timm_tpu_torch.create_scheduler_v2(
+            NAFLEX_LR, 'cosine', num_epochs=200, warmup_epochs=5, warmup_lr=1e-6)
+        flash_attention.launches = 0
+        fused_adamw.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        buckets, order, losses = {}, [], []
+        step, prev = 0, None
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t_run = time.perf_counter()
+        for epoch in range(NAFLEX_MAX_EPOCHS):
+            loader.set_epoch(epoch)
+            t_wait = time.perf_counter()
+            for batch in loader:
+                L, B = int(batch['seq_len']), int(batch['patches'].shape[0])
+                wait_ms = (time.perf_counter() - t_wait) * 1e3
+                b = {k: v for k, v in batch.items() if k not in ('seq_len', 'patch_size')}
+                rec = buckets.setdefault(L, {'batch': B, 'updates': 0, 'wait_ms': [],
+                                             'valid': [], 'step_ms': []})
+                rec['wait_ms'].append(wait_ms)
+                rec['valid'].append(float(b['patch_valid'].float().mean()))
+                lr = sched.step(step)[0]
+                step += 1
+                checked = rec['updates'] >= 1 and prev not in (None, L) and 'check' not in rec
+                if checked:
+                    before = [t.cpu() for t in _train_state(task)], gen.get_state()
+                torch.cuda.synchronize()
+                start.record()
+                metrics = task.train_step(b, lr=lr, step=step)
+                end.record()
+                torch.cuda.synchronize()
+                rec['step_ms'].append(start.elapsed_time(end))
+                rec['updates'] += 1
+                losses.append(float(metrics['loss']))
+                order.append(L)
+                rec['last'] = (b, lr, step)
+                if checked:
+                    rec['check'] = {'before': before, 'lr': lr, 'step': step,
+                                    'batch': {k: v.cpu() for k, v in b.items()},
+                                    'after': ([t.cpu() for t in _train_state(task)], gen.get_state()),
+                                    'metrics': {k: v.cpu() for k, v in metrics.items()}}
+                    del before
+                prev = L
+                if len(buckets) == len(NAFLEX_SEQ_LENS) and all('check' in r
+                                                                 for r in buckets.values()):
+                    break
+                t_wait = time.perf_counter()
+            else:
+                continue
+            break
+        row.update(epochs=epoch + 1, updates=step, bucket_order=order, losses=losses,
+                   wall_s=time.perf_counter() - t_run, captures=task.train_graphs.captures,
+                   replays=task.train_graphs.replays,
+                   train_graph_pool_bytes=task.train_graphs.pool_bytes(),
+                   train_graph_static_input_bytes=task.train_graphs.static_bytes(),
+                   augment_graph_pool_bytes=loader.graphs.pool_bytes(),
+                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+        launches = {'flash_attention': flash_attention.launches,
+                    'fused_adamw': fused_adamw.launches}
+        row['wrapper_launches'] = launches
+        check(set(buckets) == set(NAFLEX_SEQ_LENS) and all('check' in r for r in buckets.values()),
+              f'naflex_train: buckets seen {sorted(buckets)}, checked '
+              f'{sorted(L for L, r in buckets.items() if "check" in r)}')
+        check(all(np.isfinite(losses)), 'naflex_train: non-finite loss')
+        check(task.train_graphs.captures == len(buckets),
+              f'naflex_train: {task.train_graphs.captures} captures for {len(buckets)} buckets')
+        # the wrappers count a bucket's warm-up and capture, nothing more: a
+        # replay runs no Python
+        check(launches == {'flash_attention': 2 * depth * len(buckets),
+                           'fused_adamw': 2 * len(buckets)},
+              f'naflex_train: wrapper launches {launches} for {len(buckets)} buckets')
+        per_bucket = {}
+        for L, rec in sorted(buckets.items()):
+            B = rec['batch']
+            b, lr, s = rec.pop('last')
+            replay = []
+            for _ in range(2):
+                start.record()
+                task.train_step(b, lr=lr, step=s)
+                end.record()
+                torch.cuda.synchronize()
+                replay.append(start.elapsed_time(end))
+            replay_ms = float(np.mean(replay))
+            kernels, counts, wall_ms = _profile_kernels(
+                lambda: task.train_step(b, lr=lr, step=s), 2)
+            ran = _per_step(counts)
+            busy = sum(kernels.values())
+            valid = float(np.mean(rec['valid']))
+            # the attention alone at the bucket's shapes: the flash forward
+            # and the plain fp32 backward, seeded q, k, v and upstream grad
+            g = torch.Generator(device='cuda').manual_seed(L)
+            q, k, v, dy = [(0.5 * torch.randn(B, 12, L, 64, generator=g, device='cuda'))
+                           .to(torch.bfloat16) for _ in range(4)]
+            mask = (torch.arange(L, device='cuda') < round(valid * L)).expand(B, L).contiguous()
+            with torch.no_grad():
+                fwd = graph_ms(lambda: flash_attention(q, k, v, mask=mask[:, None, None, :]),
+                               per_graph=5, replays=5)
+                bwd = graph_ms(lambda: flash_attention_backward(q, k, v, mask, 0.125, dy),
+                               per_graph=1, replays=3)
+            del q, k, v, dy, mask
+            torch.cuda.empty_cache()
+            per_bucket[str(L)] = {
+                'batch': B, 'updates': rec['updates'], 'key_valid_fraction': valid,
+                'replay_step_ms': replay_ms, 'run_step_ms': rec['step_ms'],
+                'img_per_s': B / replay_ms * 1e3,
+                'tokens_per_s': B * L / replay_ms * 1e3,
+                'host_wait_ms_median': float(np.median(rec['wait_ms'])),
+                'profiled_kernels_per_step': ran if kernels else 'not measured',
+                'profiled_wall_ms': wall_ms,
+                'profiled_device_ms': busy if kernels else 'not measured',
+                'idle_share': 1.0 - busy / wall_ms if kernels else 'not measured',
+                'flash_fwd_ms_per_layer': fwd, 'attention_bwd_plain_ms_per_layer': bwd,
+                'attention_fwd_bwd_share_of_step': depth * (fwd + bwd) / replay_ms}
+            check(bool(kernels), f'naflex_train: the profiler saw no kernel at bucket {L}')
+            check(ran['flash_attention'] == depth and ran['fused_adamw'] == 1,
+                  f'naflex_train: a replayed step at bucket {L} ran {ran}')
+        row['per_bucket'] = per_bucket
+        row['loader_img_per_s_in_run'] = sum(len(r['wait_ms']) * r['batch']
+                                             for r in buckets.values()) / row['wall_s']
+        del task, loader, gen, b, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+        # each saved replay against the eager body from the same state, on a
+        # fresh task (no graph pool)
+        task = _naflex_task('cuda', torch.bfloat16, clip_grad=1.0)
+        task.setup_ema(decay=0.9998)
+        gen = get_drop_generator(task.model)
+        for L, rec in sorted(buckets.items()):
+            c = rec.pop('check')
+            for t, v in zip(_train_state(task), c['before'][0]):
+                t.copy_(v)
+            gen.set_state(c['before'][1])
+            task.optimizer.set_hyperparams(lr=c['lr'], ema_decay=task.ema.get_decay(c['step']))
+            task.model.train()
+            b = {k: v.cuda() for k, v in c['batch'].items()}
+            torch.cuda.synchronize()
+            start.record()
+            eager = {k: v.clone() for k, v in task._train_body(b).items()}
+            end.record()
+            torch.cuda.synchronize()
+            differ = [i for i, (x, y) in enumerate(zip(_train_state(task), c['after'][0]))
+                      if not _bit_equal(x.cpu(), y)]
+            same = (not differ and torch.equal(gen.get_state(), c['after'][1])
+                    and eager.keys() == c['metrics'].keys()
+                    and all(_bit_equal(eager[k].cpu(), c['metrics'][k]) for k in eager))
+            per_bucket[str(L)].update(eager_step_ms=start.elapsed_time(end),
+                                      replay_equals_eager_bit_for_bit=same,
+                                      state_tensors_that_differ=differ)
+            del c, b, eager
+        check(all(r['replay_equals_eager_bit_for_bit'] for r in per_bucket.values()),
+              f'naflex_train: replay vs eager by bucket '
+              f'{[(L, r["replay_equals_eager_bit_for_bit"]) for L, r in per_bucket.items()]}')
+        del task, gen
+        gc.collect()
+        torch.cuda.empty_cache()
+        grad_batch = _naflex_batch(NAFLEX_MODEL_VALID, NAFLEX_MAX_SEQ_LEN, seed=5)
+        err, finite, cpu_s = _grads_vs_cpu(
+            lambda device, dtype: _naflex_task(device, dtype, drop_path_rate=0.0,
+                                               nonfinite_guard=False), grad_batch)
+        row['grads_batch4'] = {'rel_l2_bf16_card_vs_fp32_cpu': err, 'tol': GRAD_REL_L2_TOL,
+                               'finite': finite, 'cpu_fp32_step_seconds': cpu_s}
+        check(finite and err <= GRAD_REL_L2_TOL,
+              f'naflex_train: gradients rel L2 {err} > {GRAD_REL_L2_TOL} (finite {finite})')
+    finally:
+        emit(row)
+    return launches
+
+
+def _run_driver(fn, argv, kernels, updates=None):
+    """Run a driver's ``fn(argv)`` (its main, or validate) with its output on
+    stderr, the wrappers' counts zeroed before: (what it returned, wall s,
+    the counts). ``updates``, a list, collects each update's batch shape
+    (patches or input) through TrainingTask.train_step."""
+    import contextlib
+
+    import torch
+    from timm_tpu_torch.task.task import TrainingTask
+    for k in kernels:
+        k.launches = 0
+    train_step = TrainingTask.train_step
+
+    def counted(self, batch, *a, **kw):
+        x = batch['patches'] if 'patches' in batch else batch['input']
+        updates.append(tuple(x.shape[:2]))
+        return train_step(self, batch, *a, **kw)
+    if updates is not None:
+        TrainingTask.train_step = counted
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            result = fn(argv)
+        torch.cuda.synchronize()
+    finally:
+        TrainingTask.train_step = train_step
+    torch.cuda.empty_cache()
+    return result, time.perf_counter() - t0, {k.__name__: k.launches for k in kernels}
+
+
+def phase_naflex_drivers():
+    """``python -m timm_tpu_torch.train --naflex-loader`` through its
+    main(argv) on 384 of the NaFlex PNGs: naflexvit_base_patch16_gap, bf16,
+    an epoch over the five buckets at 18,432 tokens a batch, mixup / cutmix,
+    'pixel' erasing on the card, no EMA (phase drivers resumes one): run A;
+    run B stopped by SIGTERM after update 3; run C with --resume auto. C's
+    last.npz bit for bit with A's. The wrappers count each bucket graph's
+    warm-up and capture and the eval graph's."""
+    import shutil
+    import tempfile
+    from timm_tpu_torch import train
+    from timm_tpu_torch.kernels import augment_epilogue, flash_attention, fused_adamw
+    kernels = (flash_attention, fused_adamw, augment_epilogue)
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_naflex_drivers_')
+    # NAFLEX_DRIVER_PER_CLASS of each class's training images, and the
+    # validation split, linked from the NaFlex folder
+    data = _naflex_data()
+    root = os.path.join(tmp, 'data')
+    for c in sorted(os.listdir(os.path.join(data, 'train'))):
+        os.makedirs(os.path.join(root, 'train', c))
+        for name in sorted(os.listdir(os.path.join(data, 'train', c)))[:NAFLEX_DRIVER_PER_CLASS]:
+            os.symlink(os.path.join(data, 'train', c, name), os.path.join(root, 'train', c, name))
+    os.symlink(os.path.join(data, 'validation'), os.path.join(root, 'validation'))
+    row = {'phase': 'naflex_drivers', 'model': NAFLEX, 'flags': ' '.join(NAFLEX_DRIVER_FLAGS),
+           'sigterm_at': NAFLEX_DRIVER_SIGTERM_AT, 'wall_s': {}, 'launches': {}, 'updates': {}}
+    depth = 12
+    try:
+        out = os.path.join(tmp, 'out')
+
+        def argv(experiment, *extra):
+            return NAFLEX_DRIVER_FLAGS + ['--data-dir', root, '--output', out,
+                                          '--experiment', experiment, *extra]
+        runs = {}
+        for name, args in (('a', argv('a')),
+                           ('b', argv('b', '--fault-inject', f'sigterm@{NAFLEX_DRIVER_SIGTERM_AT}')),
+                           ('c', argv('b', '--resume', 'auto'))):
+            shapes = []
+            rc, wall, launches = _run_driver(train.main, args, kernels, updates=shapes)
+            runs[name] = shapes
+            row['wall_s'][name], row['launches'][name] = wall, launches
+            row['updates'][name] = [list(s) for s in shapes]
+            check(rc == 0, f'naflex_drivers: run {name} exited {rc}')
+            _trim_run_dir(os.path.join(out, 'a' if name == 'a' else 'b'))
+        a, b, c = runs['a'], runs['b'], runs['c']
+        n_val = _NAFLEX_DATA['validation']
+        evals = -(-n_val // NAFLEX_DRIVER_BATCH)
+        # a bucket's graph: a warm-up and a capture; the eval graph at the
+        # max length: the same, once for the run
+        keys = {s: a.count(s) for s in set(a)}
+        want_a = {'flash_attention': depth * (sum(min(n, 2) for n in keys.values())
+                                              + min(2, NAFLEX_DRIVER_EPOCHS * evals)),
+                  'fused_adamw': sum(min(n, 2) for n in keys.values()), 'augment_epilogue': 0}
+        row['buckets_a'] = {f'{L}x{B}': n for (B, L), n in sorted(keys.items())}
+        check(row['launches']['a'] == want_a,
+              f'naflex_drivers: run A wrapper launches {row["launches"]["a"]}, want {want_a}')
+        check(len(b) == NAFLEX_DRIVER_SIGTERM_AT + 1, f'naflex_drivers: run B took {len(b)} updates')
+        check({L for _, L in a} == set(NAFLEX_SEQ_LENS), f'naflex_drivers: run A visited {sorted(keys)}')
+        check(b + c == a, 'naflex_drivers: runs B and C did not take run A\'s updates in order')
+        check(row['launches']['a']['augment_epilogue'] == 0,
+              "naflex_drivers: 'pixel' erasing launched the augment-epilogue kernel")
+        c_vs_a = _max_diff(_checkpoint_groups(os.path.join(out, 'b', 'last.npz')),
+                           _checkpoint_groups(os.path.join(out, 'a', 'last.npz')))
+        row['resumed_vs_uninterrupted'] = {g: {'tensors_differ': n, 'max_abs_diff': d}
+                                           for g, (n, d) in c_vs_a.items()}
+        check(all(n == 0 for n, _ in c_vs_a.values()),
+              f'naflex_drivers: resumed run differs from run A: {row["resumed_vs_uninterrupted"]}')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        emit(row)
+    return {k.__name__: sum(r[k.__name__] for r in row['launches'].values()) for k in kernels}
+
+
+def _dlittle(device, dtype=None, **kw):
+    """vit_dlittle_patch16_reg1_gap_256 uncut (embed 320, 14 blocks, 5
+    heads of 2 x 32, one register token, MLP 5.6), seed-0 weights, its
+    layer scale (1e-5 at init: the blocks near the identity) lifted to
+    seeded values in [0.1, 1.0]."""
+    import torch
+    import timm_tpu_torch
+    model = timm_tpu_torch.create_model(DLITTLE, dtype=dtype, seed=0, device=device, **kw)
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith('.gamma'):
+                p.copy_(torch.from_numpy(rng.uniform(0.1, 1.0, p.shape).astype(np.float32)))
+    return model
+
+
+def phase_dlittle_model():
+    """vit_dlittle_patch16_reg1_gap_256 at 256 px, batch 8: bf16 on the card
+    against fp32 on the CPU; no kernel of the port runs (DiffAttention is
+    plain PyTorch, as it is plain XLA in JAX)."""
+    import torch
+    from timm_tpu_torch.kernels import registry
+    counters = registry.launch_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    x = _images(8, size=DLITTLE_SIZE, seed=6)
+    with torch.inference_mode():
+        card = _dlittle('cuda', torch.bfloat16).eval()
+        xc = torch.from_numpy(x).cuda()
+        card(xc)
+        logits_card = card(xc).float().cpu().numpy()
+        t0 = time.perf_counter()
+        logits_cpu = _dlittle('cpu').eval()(torch.from_numpy(x)).numpy()
+        cpu_s = time.perf_counter() - t0
+    err = rel_l2(logits_card, logits_cpu)
+    moved = {k: fn.launches - before[k] for k, fn in counters.items() if fn.launches != before[k]}
+    emit({'phase': 'dlittle_model', 'model': DLITTLE, 'batch': 8, 'size': DLITTLE_SIZE,
+          'dtype': 'bfloat16', 'rel_l2_vs_cpu_fp32': err, 'tol': MODEL_REL_L2_TOL,
+          'finite': bool(np.isfinite(logits_card).all()), 'wrapper_launches': moved,
+          'cpu_fp32_seconds': cpu_s})
+    check(np.isfinite(logits_card).all(), 'dlittle_model: non-finite logits on the card')
+    check(logits_card.shape == (8, 1000), f'dlittle_model: logits shape {logits_card.shape}')
+    check(err <= MODEL_REL_L2_TOL, f'dlittle_model: rel L2 {err} > {MODEL_REL_L2_TOL}')
+    check(not moved, f'dlittle_model: the port\'s kernels launched {moved}')
+    del card
+    torch.cuda.empty_cache()
+
+
+def phase_dlittle_serve():
+    """The engine serving vit_dlittle_patch16_reg1_gap_256 in bf16 at 256 px,
+    one CUDA graph per bucket: ``_graph_serve``."""
+    import torch
+    _graph_serve('dlittle_serve', DLITTLE, lambda: _dlittle('cuda', torch.bfloat16), DLITTLE_SIZE)
+
+
+def _diff_attention_alone(model, x):
+    """Device ms of the 14 DiffAttention modules alone at a train step's
+    shapes (bf16, train mode, their inputs from one forward of ``x``):
+    forward, and forward + backward against a seeded upstream gradient,
+    from CUDA-graph replays; and the softmax over the 2H heads alone
+    (forward + backward), the fp32 part of the einsums' chain."""
+    import torch
+    from timm_tpu_torch.kernels.harness import graph_ms
+    with torch.no_grad():
+        got = _attn_inputs(model, lambda: model(x))
+    mods = [m for m, _, _ in got]
+    xs = [a.requires_grad_(True) for _, a, _ in got]
+    g = torch.Generator(device='cuda').manual_seed(4)
+    with torch.no_grad():
+        dys = [torch.randn(a.shape, generator=g, device='cuda').to(a.dtype) for a in xs]
+    params = [p for m in mods for p in m.parameters()]
+
+    def forward():
+        with torch.no_grad():
+            for m, a in zip(mods, xs):
+                m(a)
+
+    def forward_backward():
+        ys = [m(a) for m, a in zip(mods, xs)]
+        torch.autograd.grad(ys, xs + params, dys)
+    B, N, _ = xs[0].shape
+    heads = 2 * mods[0].num_heads
+    s = torch.randn(B, heads, N, N, generator=g, device='cuda').requires_grad_(True)
+    ds = torch.randn(B, heads, N, N, generator=g, device='cuda')
+
+    def softmax_fwd_bwd():
+        torch.autograd.grad(torch.softmax(s, dim=-1), s, ds)
+    out = {'modules': len(mods), 'fwd_ms': graph_ms(forward, per_graph=1, replays=5),
+           'fwd_bwd_ms': graph_ms(forward_backward, per_graph=1, replays=5),
+           'softmax_fwd_bwd_ms_per_layer': graph_ms(softmax_fwd_bwd, per_graph=1, replays=5),
+           'scores_shape': [B, heads, N, N]}
+    del got, mods, xs, dys, params, s, ds
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dlittle_train():
+    """ClassificationTask trains vit_dlittle_patch16_reg1_gap_256 (bf16, drop
+    path 0.1, AdamW through fused_adamw, clip 1.0, EMA, the guard on) on
+    256 px batches of 64: the replayed step against its eager body over 20
+    steps from one state (step 7 non-finite), bit for bit, with eager and
+    replayed step ms and idle share (``_graph_vs_eager``); a profiled
+    replay by kernel family, with the DiffAttention modules (their einsums
+    and fp32 softmax) alone at the step's shapes; one fused_adamw and no
+    flash kernel a replayed step; one step's gradients at batch 4, bf16
+    card vs fp32 CPU."""
+    import torch
+    from timm_tpu_torch.kernels import flash_attention, fused_adamw
+    batches = [_train_batch(TRAIN_BATCH, 20 + i, 'cuda', size=DLITTLE_SIZE) for i in range(4)]
+    nan_batch = _train_batch(TRAIN_BATCH, 30, 'cuda', size=DLITTLE_SIZE)
+    nan_batch['input'][3, 10, 10, 0] = float('nan')
+    flash_attention.launches = 0
+    fused_adamw.launches = 0
+    model = _dlittle('cuda', torch.bfloat16, drop_path_rate=0.1)
+    row, task = _graph_vs_eager('adamw', 1, batches, nan_batch, timed=True, model_name=DLITTLE,
+                                model=model, steps=DLITTLE_TRAIN_STEPS)
+    launches = {'flash_attention': flash_attention.launches, 'fused_adamw': fused_adamw.launches}
+    reps = 3
+    kernels, counts, wall_ms = _profile_kernels(
+        lambda: task.train_step(batches[0], lr=1e-5, step=DLITTLE_TRAIN_STEPS + 5), reps)
+    fams = _families(kernels, counts)
+    alone = _diff_attention_alone(task.model.train(), batches[0]['input'])
+    row.update(phase='dlittle_train', model=DLITTLE, dtype='bfloat16', batch=TRAIN_BATCH,
+               size=DLITTLE_SIZE, wrapper_launches=launches,
+               replay_ms_by_family=fams['ms'], replay_kernels_by_family=fams['kernels'],
+               diff_attention_alone=alone,
+               diff_attention_fwd_bwd_share_of_replay=(alone['fwd_bwd_ms'] / row['replay_step_ms']))
+    del task, batches, nan_batch
+    torch.cuda.empty_cache()
+    err, finite, cpu_s = _grads_vs_cpu(
+        lambda device, dtype: _train_task(0, device, dtype, 0.0, model=_dlittle(device, dtype),
+                                          nonfinite_guard=False),
+        _train_batch(DLITTLE_GRAD_BATCH, 7, 'cpu', size=DLITTLE_SIZE))
+    row['grads_batch4'] = {'rel_l2_bf16_card_vs_fp32_cpu': err, 'tol': GRAD_REL_L2_TOL,
+                           'finite': finite, 'cpu_fp32_step_seconds': cpu_s}
+    emit(row)
+    check(not row['buffers_that_differ'] and not row['steps_whose_metrics_differ'],
+          f'dlittle_train: replays vs eager: buffers {row["buffers_that_differ"]}, steps '
+          f'{row["steps_whose_metrics_differ"]}')
+    check(row['skipped_steps'] == [TRAIN_GRAPH_NAN_STEP],
+          f'dlittle_train: skipped steps {row["skipped_steps"]}')
+    check(row['replayed_kernels_per_step']['fused_adamw'] == 1
+          and row['replayed_kernels_per_step']['flash_attention'] == 0,
+          f'dlittle_train: a replayed step ran {row["replayed_kernels_per_step"]}')
+    # the eager body's steps, the graph's warm-up and capture, 3 profiled eager steps
+    check(launches == {'flash_attention': 0, 'fused_adamw': DLITTLE_TRAIN_STEPS + 2 + 3},
+          f'dlittle_train: wrapper launches {launches}')
+    check(all(np.isfinite(row['losses'][i]) for i in range(len(row['losses']))
+              if i + 1 != TRAIN_GRAPH_NAN_STEP), 'dlittle_train: non-finite loss')
+    check(finite and err <= GRAD_REL_L2_TOL,
+          f'dlittle_train: gradients rel L2 {err} > {GRAD_REL_L2_TOL} (finite {finite})')
+    return launches
+
+
+def phase_dlittle_drivers():
+    """A short run of the train driver on vit_dlittle_patch16_reg1_gap_256
+    from 256-320 px PNGs with --device-augment and 'const' erasing: the
+    augment program runs the augment-epilogue kernel at 256^2 (its warm-up
+    and capture), the step fused_adamw, no flash kernel."""
+    import shutil
+    import tempfile
+    from timm_tpu_torch import train
+    from timm_tpu_torch.kernels import augment_epilogue, flash_attention, fused_adamw
+    kernels = (flash_attention, fused_adamw, augment_epilogue)
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_dlittle_drivers_')
+    row = {'phase': 'dlittle_drivers', 'model': DLITTLE, 'flags': ' '.join(DLITTLE_DRIVER_FLAGS)}
+    try:
+        data = _image_data()
+        n_train, n_val = _IMAGE_DATA['train'], _IMAGE_DATA['validation']
+        shapes = []
+        rc, wall, launches = _run_driver(
+            train.main, DLITTLE_DRIVER_FLAGS + ['--data-dir', data, '--output', os.path.join(tmp, 'out'),
+                                                '--experiment', 'd'], kernels, updates=shapes)
+        row.update(train_images=n_train, validation_images=n_val, wall_s=wall, launches=launches,
+                   updates=len(shapes))
+        check(rc == 0, f'dlittle_drivers: the run exited {rc}')
+        check(len(shapes) == n_train // 64, f'dlittle_drivers: {len(shapes)} updates')
+        check(launches == {'flash_attention': 0, 'fused_adamw': 2, 'augment_epilogue': 2},
+              f'dlittle_drivers: wrapper launches {launches}')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        emit(row)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3942,47 +4782,70 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    seconds = {}
+
+    def run(fn, *args):
+        """A phase, its wall seconds kept by name."""
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[fn.__name__[len('phase_'):]] = time.perf_counter() - t
     try:
-        device = phase_device()
-        previous = phase_build()
-        verdicts = phase_kernels()
-        flash_checks = phase_flash_checks(previous['flash_attention'])
-        adamw_rows = phase_fused_adamw_checks()
-        augment_rows = phase_augment_checks(previous['augment_epilogue'])
-        phase_model()
-        serve_launches, serve_replayed, engine = phase_serve()
-        phase_breakdown(engine)
+        device = run(phase_device)
+        previous = run(phase_build)
+        verdicts = run(phase_kernels)
+        flash_checks = run(phase_flash_checks, previous['flash_attention'])
+        adamw_rows = run(phase_fused_adamw_checks)
+        augment_rows = run(phase_augment_checks, previous['augment_epilogue'])
+        run(phase_model)
+        serve_launches, serve_replayed, engine = run(phase_serve)
+        run(phase_breakdown, engine)
         del engine
-        train_launches, task, batch, train_step_ms = phase_train()
-        phase_train_vs_cpu()
-        attn_bwd_ms, attn_bwd_library_ms = phase_train_breakdown(task, batch)
+        train_launches, task, batch, train_step_ms = run(phase_train)
+        run(phase_train_vs_cpu)
+        attn_bwd_ms, attn_bwd_library_ms = run(phase_train_breakdown, task, batch)
         del task, batch
         torch.cuda.empty_cache()
-        phase_train_graph()
-        muon_launches = phase_muon_train()
-        phase_muon_vs_cpu()
+        run(phase_train_graph)
+        muon_launches = run(phase_muon_train)
+        run(phase_muon_vs_cpu)
         # ConvNeXt-B's profiled phases run before phase drivers' profiled
         # run C, after which the profiler misses kernels
-        phase_convnext_depthwise()
-        phase_convnext_model()
-        phase_convnext_serve()
-        convnext_train_launches = phase_convnext_train()
-        phase_effnet_model()
-        phase_effnet_serve()
-        effnet_train_launches = phase_effnet_train()
-        phase_resnet_model()
-        phase_resnet_serve()
-        resnet_train_launches = phase_resnet_train()
-        input_launches = phase_input_train(train_step_ms)
-        recipe_launches = phase_recipe_train()
-        driver_launches = phase_drivers()
-        convnext_driver_launches = phase_convnext_drivers()
-        effnet_driver_launches = phase_effnet_drivers()
-        resnet_driver_launches = phase_resnet_drivers()
+        run(phase_convnext_depthwise)
+        run(phase_convnext_model)
+        run(phase_convnext_serve)
+        convnext_train_launches = run(phase_convnext_train)
+        run(phase_effnet_model)
+        run(phase_effnet_serve)
+        effnet_train_launches = run(phase_effnet_train)
+        run(phase_resnet_model)
+        run(phase_resnet_serve)
+        resnet_train_launches = run(phase_resnet_train)
+        run(phase_naflex_model)
+        naflex_serve_launches = run(phase_naflex_serve)
+        naflex_train_launches = run(phase_naflex_train)
+        run(phase_dlittle_model)
+        run(phase_dlittle_serve)
+        dlittle_train_launches = run(phase_dlittle_train)
+        input_launches = run(phase_input_train, train_step_ms)
+        recipe_launches = run(phase_recipe_train)
+        driver_launches = run(phase_drivers)
+        convnext_driver_launches = run(phase_convnext_drivers)
+        effnet_driver_launches = run(phase_effnet_drivers)
+        resnet_driver_launches = run(phase_resnet_drivers)
+        naflex_driver_launches = run(phase_naflex_drivers)
+        dlittle_driver_launches = run(phase_dlittle_drivers)
     except Exception:
         traceback.print_exc()
+        print(json.dumps({'phase_seconds': seconds}), file=sys.stderr)
         print('chip_smoke: FAILED', file=sys.stderr)
         return 1
+    finally:
+        import shutil
+        for data in (_IMAGE_DATA, _NAFLEX_DATA):
+            if 'root' in data:
+                shutil.rmtree(data['root'], ignore_errors=True)
     # recipe_train's 'pixel' erasing runs the augment program's torch
     # program: the augment-epilogue kernel is not on that path (0 launches)
     launches = {'flash_attention': {'serve': serve_launches,
@@ -3992,7 +4855,10 @@ def main() -> int:
                                     'recipe_train': recipe_launches['flash_attention'],
                                     'drivers': driver_launches['flash_attention'],
                                     'resnet_train': resnet_train_launches['flash_attention'],
-                                    'resnet_drivers': resnet_driver_launches['flash_attention']},
+                                    'resnet_drivers': resnet_driver_launches['flash_attention'],
+                                    'naflex_serve': naflex_serve_launches,
+                                    'naflex_train': naflex_train_launches['flash_attention'],
+                                    'naflex_drivers': naflex_driver_launches['flash_attention']},
                 'fused_adamw': {'train': train_launches['fused_adamw'],
                                 'input_train': input_launches['fused_adamw'],
                                 'recipe_train': recipe_launches['fused_adamw'],
@@ -4002,14 +4868,21 @@ def main() -> int:
                                 'effnet_train': effnet_train_launches['fused_adamw'],
                                 'effnet_drivers': effnet_driver_launches['fused_adamw'],
                                 'resnet_train': resnet_train_launches['fused_adamw'],
-                                'resnet_drivers': resnet_driver_launches['fused_adamw']},
+                                'resnet_drivers': resnet_driver_launches['fused_adamw'],
+                                'naflex_train': naflex_train_launches['fused_adamw'],
+                                'naflex_drivers': naflex_driver_launches['fused_adamw'],
+                                'dlittle_train': dlittle_train_launches['fused_adamw'],
+                                'dlittle_drivers': dlittle_driver_launches['fused_adamw']},
                 'augment_epilogue': {'input_train': input_launches['augment_epilogue'],
                                      'recipe_train': recipe_launches['augment_epilogue'],
                                      'drivers': driver_launches['augment_epilogue'],
                                      'convnext_drivers':
                                          convnext_driver_launches['augment_epilogue'],
                                      'effnet_drivers': effnet_driver_launches['augment_epilogue'],
-                                     'resnet_drivers': resnet_driver_launches['augment_epilogue']}}
+                                     'resnet_drivers': resnet_driver_launches['augment_epilogue'],
+                                     'naflex_drivers': naflex_driver_launches['augment_epilogue'],
+                                     'dlittle_drivers':
+                                         dlittle_driver_launches['augment_epilogue']}}
     previous_rows = {'flash_attention': {r['case']: r for r in flash_checks['previous']},
                      'augment_epilogue': {r['case']: r for r in augment_rows}}
     lines = []
@@ -4042,7 +4915,13 @@ def main() -> int:
         serve_replayed_kernels=serve_replayed,
         sharp_error_over_bound=flash_checks['sharp_error_over_bound'],
         backward_plain_ms_per_layer=attn_bwd_ms,
-        backward_library_ms_per_layer=attn_bwd_library_ms)
+        backward_library_ms_per_layer=attn_bwd_library_ms,
+        # the NaFlex train step's own shapes (B 288 at N 128, B 36 at N 1024)
+        naflex_cases={c['case']: {k: c[k] for k in ('kernel_ms', 'call_ms', 'plain_ms', 'bound_ms',
+                                                     'bound_by', 'bound_share', 'library_ms',
+                                                     'vs_library', 'io_bytes', 'flops')}
+                      for c in verdicts['flash_attention']['cases']
+                      if c['case'] in ('naflex_n128', 'naflex_n1024')})
     by_name['fused_adamw'].update(
         clipped_steps_max_abs_err=max(max(r['max_abs_err'][k] for k in ('p', 'v', 'ema'))
                                       for r in adamw_rows))
@@ -4051,7 +4930,7 @@ def main() -> int:
                                 if r['out_dtype'] == 'bfloat16'),
         bit_identical_fp32=all(p['max_abs_err'] == 0.0
                                for p in verdicts['augment_epilogue']['parity']))
-    emit({'kernels': lines, 'seconds': time.perf_counter() - t0})
+    emit({'kernels': lines, 'seconds': time.perf_counter() - t0, 'phase_seconds': seconds})
     print(device['nvidia_smi'], flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': device['name'],
                                  'count': device['count']}})

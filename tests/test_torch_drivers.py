@@ -324,8 +324,8 @@ def test_drivers_raise_for_unported_flags_and_without_a_card():
     import torch
 
     from timm_tpu_torch import inference, train, validate
-    for flag, item in (('--fsdp=2', 'A.5.11'), ('--naflex-loader', 'A.5.8'),
-                       ('--grad-checkpointing', 'A.5.7'), ('--distill=teacher=x', 'A.5.10')):
+    for flag, item in (('--fsdp=2', 'A.5.11'), ('--grad-checkpointing', 'A.5.7'),
+                       ('--distill=teacher=x', 'A.5.10')):
         with pytest.raises(NotImplementedError, match=item):
             train.main(COMMON + [flag])
     with pytest.raises(ValueError, match='aug-splits'):  # split BN needs the splits

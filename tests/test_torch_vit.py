@@ -139,7 +139,9 @@ def test_weight_carry_is_strict(jx):
 
 
 def test_registry_and_classifier_contract():
-    assert timm_tpu_torch.list_models('vit_*') == ['vit_base_patch16_224', 'vit_tiny_patch16_224']
+    assert timm_tpu_torch.list_models('vit_*') == [
+        'vit_base_patch16_224', 'vit_dlittle_patch16_reg1_gap_256', 'vit_dwee_patch16_reg1_gap_256',
+        'vit_little_patch16_reg4_gap_256', 'vit_tiny_patch16_224', 'vit_wee_patch16_reg1_gap_256']
     # resnetv2 is not ported yet (resnet50 is, since the ResNet slice)
     assert timm_tpu_torch.is_model('test_vit.r160_in1k') and not timm_tpu_torch.is_model(
         'resnetv2_50')

@@ -28,6 +28,13 @@ as an argument, so JAX's can be fed in.
 signature (names, shapes, dtypes and the mode; ``utils/cuda_graph.py``), the
 counterpart of JAX's jit of the program per batch shape; on the CPU it runs
 eagerly.
+
+NaFlex batches (packed (B, L, P*P*C) patches in [0, 1]) have their own
+program, ``augment_naflex_batch``: normalize with the channel constants
+tiled over the patch dim, then fill the erased tokens in normalized space,
+0 for 'const' and N(0, 1) noise for 'pixel', drawn as above from a
+generator seeded by (noise seed, epoch, step). ``NaFlexDeviceAugment``
+runs it as one CUDA graph per bucket shape and erase mode.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ _logger = logging.getLogger(__name__)
 __all__ = [
     'mixup_images', 'mixup_targets', 'erase_images', 'augment_images', 'augment_image_batch',
     'noise_generator_seed', 'pixel_noise', 'DeviceAugment', 'DeviceAugmentStage',
+    'augment_naflex_batch', 'NaFlexDeviceAugment',
 ]
 
 _ERASE_MODES = ('const', 'rand', 'pixel')
@@ -337,6 +345,113 @@ class DeviceAugmentStage:
         finally:
             # an early stop closes the loader's iteration (and its threads)
             # now, not when the iterator is collected
+            close = getattr(it, 'close', None)
+            if close is not None:
+                close()
+
+
+_NAFLEX_PARAM_KEYS = ('erase_mask',)
+
+
+def augment_naflex_batch(batch, *, mean, std, re_mode='const', noise=None):
+    """The NaFlex device program: (B, L, D) patches normalized with ``mean``
+    and ``std`` tiled to the (P*P*C,) patch dim (channel fastest), then the
+    tokens of ``erase_mask`` filled in normalized space: 0 for 'const',
+    ``noise`` (N(0, 1) of the patches' shape) for 'pixel'. The mask is
+    consumed; every other entry passes through."""
+    p = batch['patches'].float()
+    reps = p.shape[-1] // len(mean)
+    p = (p - _vec(mean, p.device).repeat(reps)) / _vec(std, p.device).repeat(reps)
+    if 'erase_mask' in batch:
+        if re_mode == 'pixel':
+            if noise is None:
+                raise ValueError("NaFlex erase mode 'pixel' needs its noise (N(0, 1) of the "
+                                 "patches' shape)")
+            fill = noise
+        else:
+            fill = torch.zeros((), dtype=torch.float32, device=p.device)
+        p = torch.where(batch['erase_mask'][..., None], fill, p)
+    out = {k: v for k, v in batch.items() if k not in _NAFLEX_PARAM_KEYS}
+    out['patches'] = p
+    return out
+
+
+class NaFlexDeviceAugment:
+    """Iterable stage over NaFlex dict batches: the normalize and the token
+    erase fill run on the device (``device``, else the batch's), one CUDA
+    graph per bucket shape and erase mode. The host scalars ('seq_len',
+    'patch_size') stay out of the program and ride the yielded batch. A
+    batch's 'pixel' noise is keyed by (``noise_seed``, the epoch
+    ``set_epoch`` set, the batch's index in the epoch)."""
+
+    _HOST_KEYS = ('seq_len', 'patch_size')
+
+    def __init__(self, loader, mean, std, re_mode='const', noise_seed=42, device=None):
+        if re_mode not in ('const', 'pixel'):
+            raise ValueError(f"NaFlex erase mode must be 'pixel' or 'const', got {re_mode!r}")
+        self.loader = loader
+        self.mean = tuple(float(m) for m in mean)
+        self.std = tuple(float(s) for s in std)
+        self.re_mode = re_mode
+        self.noise_seed = int(noise_seed)
+        self.device = resolve_device(device)
+        self._epoch = 0
+        self.graphs: Optional[StepGraphs] = None
+        self.generator: Optional[torch.Generator] = None
+        self._consts: Dict[str, torch.Tensor] = {}
+
+    def set_epoch(self, epoch: int):
+        self._epoch = int(epoch)
+        if hasattr(self.loader, 'set_epoch'):
+            self.loader.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def _setup(self) -> None:
+        """Constants, generator and graphs, made before any capture."""
+        if self.graphs is not None:
+            return
+        device = self.device
+        if device.type == 'cuda' and device.index is None:
+            device = torch.device('cuda', torch.cuda.current_device())
+        self._consts = {k: _vec(getattr(self, k), device) for k in ('mean', 'std')}
+        if self.re_mode == 'pixel':
+            self.generator = torch.Generator(device=device)
+        self.graphs = StepGraphs(self._program, device, generators=self._generators)
+
+    def _generators(self):
+        return [self.generator]
+
+    def _program(self, batch, re_mode: str):
+        """The program a graph captures: it reads nothing back to the host."""
+        noise = None
+        if re_mode == 'pixel' and 'erase_mask' in batch:
+            noise = torch.randn(tuple(batch['patches'].shape), generator=self.generator,
+                                device=self.generator.device, dtype=torch.float32)
+        return augment_naflex_batch(batch, mean=self._consts['mean'], std=self._consts['std'],
+                                    re_mode=re_mode, noise=noise)
+
+    def __call__(self, batch, epoch: int = 0, step: int = 0):
+        """The augmented dict batch; ``epoch`` and ``step`` key the noise."""
+        self._setup()
+        host_meta = {k: batch[k] for k in self._HOST_KEYS if k in batch}
+        dev = {k: v for k, v in batch.items() if k not in host_meta}
+        if self.generator is not None:
+            self.generator.manual_seed(noise_generator_seed(self.noise_seed, epoch, step))
+        out = self.graphs(dev, self.re_mode)
+        out.update(host_meta)
+        return out
+
+    def __iter__(self):
+        it = iter(self.loader)
+        try:
+            for step, batch in enumerate(it):
+                yield self(batch, epoch=self._epoch, step=step)
+        finally:
             close = getattr(it, 'close', None)
             if close is not None:
                 close()

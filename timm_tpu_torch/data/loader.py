@@ -49,7 +49,8 @@ _SKIPPED = object()
 
 class DevicePrefetcher:
     """Double-buffer device-prefetch stage over any (image, target) numpy
-    batch iterable.
+    batch iterable, or one of dict batches (NaFlex), whose arrays it copies
+    and whose other entries (``seq_len``, ``patch_size``) it passes on.
 
     Each host batch is pinned (``pin_memory``) and copied with
     ``non_blocking=True`` on the prefetcher's own ``torch.cuda.Stream``;
@@ -80,6 +81,12 @@ class DevicePrefetcher:
         return len(self.loader)
 
     def _copy(self, batch, stream):
+        """(the batch on the device, the event after its copies). A dict
+        batch (NaFlex) keeps its host scalars as they are."""
+        if isinstance(batch, dict):
+            keys = [k for k, v in batch.items() if isinstance(v, np.ndarray)]
+            tensors, done = self._copy([batch[k] for k in keys], stream)
+            return dict(batch, **dict(zip(keys, tensors))), done
         tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in batch]
         if stream is None:
             return tensors, None
@@ -108,9 +115,10 @@ class DevicePrefetcher:
                 if done is not None:
                     consumer = torch.cuda.current_stream(self.device)
                     consumer.wait_event(done)
-                    for t in tensors:
-                        t.record_stream(consumer)
-                yield tuple(tensors)
+                    for t in (tensors.values() if isinstance(tensors, dict) else tensors):
+                        if isinstance(t, torch.Tensor):
+                            t.record_stream(consumer)
+                yield tensors if isinstance(tensors, dict) else tuple(tensors)
         finally:
             buf.clear()
             close = getattr(it, 'close', None)

@@ -30,9 +30,12 @@ TPU kernel gives it: every key slot of its padded key range gets p = 1, so
 the row is the sum of v over the N keys divided by round_up(N, block_k),
 block_k = min(512, max(128, next_pow2(N))). The kernel computes fewer slots
 and divides such a row by that count in its epilogue; the plain version
-puts the same value in place of ``_sdpa``'s mean of v. The ViT token pad
-never produces such a row (the class token is always a valid key); NaFlex
-batches will.
+puts the same value in place of ``_sdpa``'s mean of v. Neither the ViT
+token pad nor a NaFlex batch produces such a row (a class token, or a
+sample's first patch, is always a valid key); NaFlexVit's 'symmetric' mask
+is run as this kernel's key-padding mask, and its padded query rows are
+then overwritten with JAX's value by the attention layer
+(``layers/attention.py``).
 
 The input contract is the JAX one: an optional bool key-padding mask of shape
 (B, N) or (B, 1, 1, N), True = valid key; any other mask raises, because the
@@ -188,18 +191,23 @@ def _launch(q, k, v, key_mask, scale: float):
 
 def flash_attention_backward(q, k, v, key_mask, scale: float, grad_out):
     """``_flash_bwd_rule`` of the JAX package: dq, dk, dv from an fp32
-    recompute of the attention, each cast to its input's dtype."""
+    recompute of the attention, each cast to its input's dtype. The (B, H,
+    N, N) fp32 scores are freed as soon as p exists and ds is formed in dp's
+    storage, so at most three such tensors are alive at once (1.8 GB each
+    at B 36, N 1024); the values are those of the out-of-place chain."""
     qf = q.float() * scale
     kf = k.float()
     vf = v.float()
     s = qf @ kf.transpose(-2, -1)
     if key_mask is not None:
-        s = torch.where(key_mask[:, None, None, :], s, -1e30)
+        s.masked_fill_(~key_mask[:, None, None, :], -1e30)
     p = torch.softmax(s, dim=-1)
+    del s
     gf = grad_out.float()
     dv = p.transpose(-2, -1) @ gf
     dp = gf @ vf.transpose(-2, -1)
-    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    ds = dp.sub_(torch.sum(dp * p, dim=-1, keepdim=True)).mul_(p)
+    del dp
     dq = (ds @ kf) * scale
     dk = ds.transpose(-2, -1) @ qf
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -329,7 +337,8 @@ def _register():
         name='flash_attention',
         module=__name__,
         regime='every attention of the port on the card: ViT-B/16 serving buckets (N 197, '
-               'D 64, bf16 or fp16) and key-padding-masked N in {256, 576, 784, 1024}',
+               'D 64, bf16 or fp16) and key-padding-masked N in {128, 256, 576, 784, 1024} '
+               '(the NaFlex buckets)',
         gate='beat the plain attention at every declared case on the card, or be deleted; '
              'the library call is timed beside it and decides nothing',
         parity_tol=2e-2,
@@ -373,6 +382,25 @@ def _register():
                        live=dict(batch=64, heads=12, seq=256, head_dim=64, valid=197,
                                  dtype='bfloat16'),
                        desc='197 tokens padded to 256 with a key-padding mask'),
+            # the NaFlex train step's own shapes, naflexvit_base_patch16_gap at a
+            # budget of 36,864 tokens; every row keeps the mean valid count the
+            # NaFlex loader gives the seeded 96-640 px images of chip_smoke.py
+            # at that bucket (0.972 of 128, 0.989 of 1024)
+            KernelCase(name='naflex_n128',
+                       dry=dict(batch=2, heads=2, seq=128, head_dim=64, valid=124,
+                                dtype='bfloat16'),
+                       live=dict(batch=288, heads=12, seq=128, head_dim=64, valid=124,
+                                 dtype='bfloat16'),
+                       desc='NaFlex train bucket 128 (B 288), key-padded'),
+            # its dry arm is fp32, as the JAX registry's masked dry arms are: in
+            # bf16 at 1013 valid keys the per-element bound is 0.29 of the mean
+            # |output| (the softmax-weighted |v| it scales with does not shrink
+            # with N as the output does)
+            KernelCase(name='naflex_n1024',
+                       dry=dict(batch=1, heads=1, seq=1024, head_dim=64, valid=1013),
+                       live=dict(batch=36, heads=12, seq=1024, head_dim=64, valid=1013,
+                                 dtype='bfloat16'),
+                       desc='NaFlex train bucket 1024 (B 36), key-padded'),
         ),
     ))
 

@@ -1,4 +1,4 @@
-from .attention import Attention, maybe_add_mask, scaled_dot_product_attention
+from .attention import Attention, SeqPadMask, maybe_add_mask, scaled_dot_product_attention
 from .blur_pool import AvgPool2dAA, BlurPool2d
 from .classifier import ClassifierHead, NormMlpClassifierHead, create_classifier
 from .config import softmax_with_policy
@@ -9,6 +9,7 @@ from .create_conv2d import (
     Conv2d, ConvNormAct, SeparableConvNormAct, create_conv2d, get_aa_layer, get_padding,
 )
 from .create_norm import create_norm_layer, get_norm_layer
+from .diff_attention import DiffAttention
 from .eca import CecaModule, EcaModule
 from .drop import (
     DropPath, Dropout, apply_keep_mask, calculate_drop_path_rates, drop_path, dropout,
@@ -27,7 +28,7 @@ from .norm_act import (
     BatchNormAct2d, FrozenBatchNormAct2d, GroupNorm1Act, GroupNormAct, LayerNormAct,
     LayerNormAct2d, get_norm_act_layer,
 )
-from .patch_embed import PatchEmbed
+from .patch_embed import PatchEmbed, resample_patch_embed, resample_weight_matrix
 from .pool import SelectAdaptivePool2d, adaptive_pool_feat_mult, global_pool_nlc
 from .split_batchnorm import SplitBatchNorm2d, SplitBatchNormAct2d, convert_splitbn_model
 from .squeeze_excite import EffectiveSEModule, SEModule, SqueezeExcite

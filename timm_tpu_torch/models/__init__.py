@@ -9,6 +9,7 @@ from ._registry import (
     register_model, split_model_name_tag,
 )
 from .convnext import ConvNeXt
+from .naflexvit import NaFlexVit
 from .resnet import ResNet
 from .efficientnet import EfficientNet
 from .vision_transformer import Block, VisionTransformer

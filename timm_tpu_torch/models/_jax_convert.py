@@ -14,6 +14,11 @@ Every other name carries over as it is, because the port's module tree
 mirrors the JAX package's: MixedConv2d's per-split kernels are
 ``convs.<i>.kernel`` on both sides, and CondConv2d keeps JAX's layout, its
 ``weight`` (E, P) of HWIO-flat expert rows and ``bias`` (E, C_out).
+NaFlexVit's ``embeds.proj`` is a Linear on both sides (its (P*P*C, D)
+kernel transposes as any); its ``embeds.pos_embed_y`` / ``_x`` / ``_grid``,
+``cls_token`` and ``reg_token``, and DiffAttention's 0-d ``lambda_a`` /
+``lambda_b`` and 1-d ``lambda_q1`` .. ``lambda_k2``, carry over as they
+are (its ``sub_norm.scale`` becomes ``sub_norm.weight``).
 
 Task checkpoints (``convert_jax_checkpoint``): the single flat dict of
 ``timm_tpu.task.TrainingTask.get_checkpoint_state`` becomes the port's

@@ -1,11 +1,18 @@
 """Vision Transformer (counterpart of timm_tpu/models/vision_transformer.py).
 
-Ported: the pre-norm ``Block``, ``VisionTransformer`` with the
-forward_features / forward_head / forward contract, get_classifier /
-reset_classifier, no_weight_decay, group_matcher (layer decay), the token
-pad ``pad_tokens_to`` (which threads a key-padding mask into every
-attention), and the entrypoints test_vit, test_vit2, vit_tiny_patch16_224
-and vit_base_patch16_224.
+Ported: the pre-norm ``Block`` (any attention layer, qk-norm, norm, act
+and MLP layers), ``VisionTransformer`` with the forward_features /
+forward_head / forward contract, get_classifier / reset_classifier,
+no_weight_decay, group_matcher (layer decay), the token pad
+``pad_tokens_to`` (which threads a key-padding mask into every attention),
+``no_embed_class`` (the position embedding covers the patches only and is
+added before the prefix tokens are concatenated) and ``attn_layer='diff'``
+(differential attention, ``layers/diff_attention.py``, with each block's
+depth), and the entrypoints test_vit, test_vit2, vit_tiny_patch16_224,
+vit_base_patch16_224 and the "little" / "wee" family of 256 px register
+models (vit_little_patch16_reg4_gap_256, vit_wee_patch16_reg1_gap_256 and
+their differential-attention twins vit_dlittle_patch16_reg1_gap_256 and
+vit_dwee_patch16_reg1_gap_256).
 
 Input is NHWC, as in the JAX package. With ``dtype=torch.bfloat16`` the
 casts follow the JAX model: the patch embedding, blocks and head compute in
@@ -15,13 +22,14 @@ fp32 (flax's promotion with fp32 parameters) and the head casts back to bf16.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from functools import partial
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..layers import (
-    Attention, DropPath, Dropout, LayerNorm, LayerScale, Linear, Mlp, PatchEmbed,
+    Attention, DiffAttention, DropPath, Dropout, LayerNorm, LayerScale, Linear, Mlp, PatchEmbed,
     calculate_drop_path_rates, global_pool_nlc, trunc_normal_,
 )
 from ._builder import build_model_with_cfg
@@ -39,26 +47,34 @@ class Block(nn.Module):
             num_heads: int,
             mlp_ratio: float = 4.0,
             qkv_bias: bool = False,
+            qk_norm: bool = False,
+            proj_bias: bool = True,
             proj_drop: float = 0.0,
             attn_drop: float = 0.0,
             init_values: Optional[float] = None,
             drop_path: float = 0.0,
+            act_layer: Union[str, Callable] = 'gelu',
+            norm_layer: Callable = LayerNorm,
+            mlp_layer: Callable = Mlp,
+            attn_layer: Optional[Callable] = None,
             dtype: Optional[torch.dtype] = None,
             generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        self.norm1 = LayerNorm(dim, dtype=dtype)
-        self.attn = Attention(dim, num_heads=num_heads, qkv_bias=qkv_bias, attn_drop=attn_drop,
-                              proj_drop=proj_drop, dtype=dtype, generator=generator)
+        attn_layer = attn_layer or Attention
+        self.norm1 = norm_layer(dim, dtype=dtype)
+        self.attn = attn_layer(dim, num_heads=num_heads, qkv_bias=qkv_bias, qk_norm=qk_norm,
+                               proj_bias=proj_bias, attn_drop=attn_drop, proj_drop=proj_drop,
+                               norm_layer=norm_layer, dtype=dtype, generator=generator)
         self.ls1 = LayerScale(dim, init_values=init_values) if init_values else None
         self.drop_path1 = DropPath(drop_path)
-        self.norm2 = LayerNorm(dim, dtype=dtype)
-        self.mlp = Mlp(dim, hidden_features=int(dim * mlp_ratio), drop=proj_drop, dtype=dtype,
-                       generator=generator)
+        self.norm2 = norm_layer(dim, dtype=dtype)
+        self.mlp = mlp_layer(dim, hidden_features=int(dim * mlp_ratio), act_layer=act_layer,
+                             bias=proj_bias, drop=proj_drop, dtype=dtype, generator=generator)
         self.ls2 = LayerScale(dim, init_values=init_values) if init_values else None
         self.drop_path2 = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_mask=None) -> torch.Tensor:
         y = self.attn(self.norm1(x), attn_mask=attn_mask)
         if self.ls1 is not None:
             y = self.ls1(y)
@@ -89,12 +105,14 @@ class VisionTransformer(nn.Module):
             qkv_bias: bool = True,
             init_values: Optional[float] = None,
             class_token: bool = True,
+            no_embed_class: bool = False,
             reg_tokens: int = 0,
             drop_rate: float = 0.0,
             pos_drop_rate: float = 0.0,
             proj_drop_rate: float = 0.0,
             attn_drop_rate: float = 0.0,
             drop_path_rate: float = 0.0,
+            attn_layer: Optional[Union[str, Callable]] = None,
             pad_tokens_to: Optional[Union[int, str]] = None,
             dtype: Optional[torch.dtype] = None,
             generator: Optional[torch.Generator] = None,
@@ -118,6 +136,7 @@ class VisionTransformer(nn.Module):
         self.num_prefix_tokens = (1 if class_token else 0) + reg_tokens
         self.num_reg_tokens = reg_tokens
         self.has_class_token = class_token
+        self.no_embed_class = no_embed_class
         self.depth = depth
         self._dtype = dtype
 
@@ -127,16 +146,22 @@ class VisionTransformer(nn.Module):
         self.reg_token = nn.Parameter(
             trunc_normal_(torch.empty(1, reg_tokens, embed_dim), std=0.02, generator=generator)
         ) if reg_tokens else None
+        embed_len = self.patch_embed.num_patches + (0 if no_embed_class else self.num_prefix_tokens)
         self.pos_embed = nn.Parameter(trunc_normal_(
-            torch.empty(1, self.patch_embed.num_patches + self.num_prefix_tokens, embed_dim),
-            std=0.02, generator=generator))
+            torch.empty(1, embed_len, embed_dim), std=0.02, generator=generator))
         self.pos_drop = Dropout(pos_drop_rate)
+
+        def _resolve_attn_layer(i: int):
+            if attn_layer == 'diff':
+                return partial(DiffAttention, depth=i)  # depth-dependent lambda_init
+            return attn_layer
 
         dpr = calculate_drop_path_rates(drop_path_rate, depth)
         self.blocks = nn.ModuleList([
             Block(dim=embed_dim, num_heads=num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                   init_values=init_values, proj_drop=proj_drop_rate, attn_drop=attn_drop_rate,
-                  drop_path=dpr[i], dtype=dtype, generator=generator)
+                  drop_path=dpr[i], attn_layer=_resolve_attn_layer(i), dtype=dtype,
+                  generator=generator)
             for i in range(depth)])
 
         # feature norm (pre-pool), or fc norm (post-pool) for average pooling;
@@ -194,9 +219,14 @@ class VisionTransformer(nn.Module):
             prefix.append(self.cls_token.to(x.dtype).expand(B, -1, -1))
         if self.reg_token is not None:
             prefix.append(self.reg_token.to(x.dtype).expand(B, -1, -1))
-        x = torch.cat(prefix + [x], dim=1) if prefix else x
-        x = self.pos_drop(x + self.pos_embed.to(x.dtype))
-        return self._pad_token_seq(x, pad_tokens_to)
+        pos_embed = self.pos_embed.to(x.dtype)
+        if self.no_embed_class:
+            x = x + pos_embed
+            x = torch.cat(prefix + [x], dim=1) if prefix else x
+        else:
+            x = torch.cat(prefix + [x], dim=1) if prefix else x
+            x = x + pos_embed
+        return self._pad_token_seq(self.pos_drop(x), pad_tokens_to)
 
     def _pad_token_seq(self, x: torch.Tensor, pad_tokens_to=None):
         B, n = x.shape[0], x.shape[1]
@@ -263,6 +293,16 @@ default_cfgs = generate_default_cfgs({
     'vit_base_patch16_224.augreg_in1k': _cfg(hf_hub_id='timm/'),
     'test_vit.r160_in1k': _cfg(hf_hub_id='timm/', input_size=(3, 160, 160), crop_pct=0.95),
     'test_vit2.r160_in1k': _cfg(hf_hub_id='timm/', input_size=(3, 160, 160), crop_pct=0.95),
+    'vit_dlittle_patch16_reg1_gap_256.sbb_nadamuon_in1k': _cfg(
+        hf_hub_id='timm/', input_size=(3, 256, 256), crop_pct=0.95),
+    'vit_little_patch16_reg4_gap_256.sbb_in1k': _cfg(
+        hf_hub_id='timm/', input_size=(3, 256, 256), crop_pct=0.95),
+    'vit_wee_patch16_reg1_gap_256.sbb_in1k': _cfg(
+        hf_hub_id='timm/', input_size=(3, 256, 256), crop_pct=0.95),
+    'vit_dwee_patch16_reg1_gap_256.sbb_nadamuon_in1k': _cfg(
+        hf_hub_id='timm/', input_size=(3, 256, 256), crop_pct=0.95),
+    'vit_dwee_patch16_reg1_gap_256.sbb_in1k': _cfg(
+        hf_hub_id='timm/', input_size=(3, 256, 256), crop_pct=0.95),
 })
 
 
@@ -297,3 +337,45 @@ def test_vit2(pretrained: bool = False, **kwargs) -> VisionTransformer:
         class_token=False, reg_tokens=1, global_pool='avg', init_values=1e-5,
     )
     return _create_vision_transformer('test_vit2', pretrained=pretrained, **dict(model_args, **kwargs))
+
+
+@register_model
+def vit_dlittle_patch16_reg1_gap_256(pretrained: bool = False, **kwargs) -> VisionTransformer:
+    """Differential-attention 'little' ViT (sbb recipe)."""
+    model_args = dict(
+        patch_size=16, embed_dim=320, depth=14, num_heads=5, init_values=1e-5, mlp_ratio=5.6,
+        class_token=False, no_embed_class=True, reg_tokens=1, global_pool='avg', attn_layer='diff',
+        img_size=256,
+    )
+    return _create_vision_transformer(
+        'vit_dlittle_patch16_reg1_gap_256', pretrained=pretrained, **dict(model_args, **kwargs))
+
+
+@register_model
+def vit_little_patch16_reg4_gap_256(pretrained: bool = False, **kwargs) -> VisionTransformer:
+    model_args = dict(
+        patch_size=16, embed_dim=320, depth=14, num_heads=5, init_values=1e-5, mlp_ratio=5.6,
+        class_token=False, no_embed_class=True, reg_tokens=4, global_pool='avg', img_size=256,
+    )
+    return _create_vision_transformer(
+        'vit_little_patch16_reg4_gap_256', pretrained=pretrained, **dict(model_args, **kwargs))
+
+
+@register_model
+def vit_wee_patch16_reg1_gap_256(pretrained: bool = False, **kwargs) -> VisionTransformer:
+    model_args = dict(
+        patch_size=16, embed_dim=256, depth=14, num_heads=4, init_values=1e-5, mlp_ratio=5,
+        class_token=False, no_embed_class=True, reg_tokens=1, global_pool='avg',
+    )
+    return _create_vision_transformer(
+        'vit_wee_patch16_reg1_gap_256', pretrained=pretrained, **dict(model_args, **kwargs))
+
+
+@register_model
+def vit_dwee_patch16_reg1_gap_256(pretrained: bool = False, **kwargs) -> VisionTransformer:
+    model_args = dict(
+        patch_size=16, embed_dim=256, depth=14, num_heads=4, init_values=1e-5, mlp_ratio=5,
+        class_token=False, no_embed_class=True, reg_tokens=1, global_pool='avg', attn_layer='diff',
+    )
+    return _create_vision_transformer(
+        'vit_dwee_patch16_reg1_gap_256', pretrained=pretrained, **dict(model_args, **kwargs))

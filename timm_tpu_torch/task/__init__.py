@@ -1,2 +1,2 @@
-from .classification import ClassificationTask
+from .classification import ClassificationTask, NaFlexClassificationTask
 from .task import Normalize, TrainingTask

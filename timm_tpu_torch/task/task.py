@@ -246,8 +246,10 @@ class TrainingTask:
     def _eval_body(self, tensors: Dict[str, torch.Tensor], others=(), use_ema: bool = False):
         batch = self.normalize_input(dict(tensors, **dict(others)))
         if use_ema:
+            # eval_forward with the EMA weights in place of the parameters
             return torch.func.functional_call(
-                self.model, self.ema_params, (batch['input'],), strict=False)
+                _EvalForward(self, self.model),
+                {f'model.{n}': t for n, t in self.ema_params.items()}, (batch,), strict=False)
         return self.eval_forward(self.model, batch)
 
     # -- checkpoint ------------------------------------------------------------
@@ -296,3 +298,17 @@ class TrainingTask:
         load_module_arrays(persistent_buffers(self.model), split_prefix(state, 'model_state'),
                            'model_state', strict=strict)
         restore_drop_rng(state, get_drop_generator(self.model))
+
+
+class _EvalForward(nn.Module):
+    """``task.eval_forward`` as a module over the task's model, so
+    ``functional_call`` can swap in the EMA weights (any batch form: dense
+    input or a NaFlex dict)."""
+
+    def __init__(self, task: TrainingTask, model: nn.Module):
+        super().__init__()
+        self._task = task
+        self.model = model
+
+    def forward(self, batch):
+        return self._task.eval_forward(self.model, batch)

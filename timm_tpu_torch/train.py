@@ -20,6 +20,15 @@ the JAX script runs (``--sched cosine|tanh|step|multistep|plateau|poly``
 with cooldown, warmup prefix, noise, cycles and k-decay; plateau steps on
 the evaluation metric), and ``--bce-loss`` with ``--bce-sum`` and
 ``--bce-target-thresh``.
+``--naflex-loader`` trains a NaFlexVit (``naflexvit_*``) from token-budget
+buckets of variable-resolution images (``data/naflex_loader.py``): one
+dict batch of packed patches is one update, the sequence length and batch
+size change from batch to batch over ``--naflex-train-seq-lens``, the step
+is one CUDA graph per bucket shape, and every attention is the flash
+kernel with the batch's key-padding mask; mixup and cutmix are the
+loader's variable-size ones, with the soft targets built in
+``NaFlexClassificationTask``, and evaluation runs at
+``--naflex-max-seq-len``.
 With ``--device-augment`` the loader ends in the augment program, one CUDA
 graph per batch shape: the augment-epilogue kernel for ``--remode const``,
 the torch program for 'rand' and 'pixel' (the default), as in the JAX
@@ -109,9 +118,14 @@ def make_parser():
                             'CUDA graph per batch shape: the augment-epilogue kernel for --remode '
                             "const, the torch program for 'rand' and 'pixel'); the host collates "
                             'raw uint8 and only samples augment parameters. Requires '
-                            '--grad-accum-steps 1, a real dataset and no --aug-splits')
+                            '--grad-accum-steps 1, a real dataset and no --aug-splits; with '
+                            '--naflex-loader the host ships [0, 1] patches and the program '
+                            'normalizes and fills the erased tokens, one graph per bucket')
     group.add_argument('--naflex-bucket-mode', type=str, default='budget',
-                       choices=('budget', 'native'), help='not ported (ROADMAP A.5.8)')
+                       choices=('budget', 'native'),
+                       help='NaFlex seq-len assignment: "budget" schedules random ladder buckets '
+                            'under the token budget; "native" puts each image in the smallest '
+                            'bucket holding its native grid')
     group.add_argument('--fsdp', type=int, default=0, metavar='N',
                        help='not ported (ROADMAP A.5.11)')
     group.add_argument('--tp', type=int, default=0, metavar='N',
@@ -234,10 +248,12 @@ def make_parser():
                        help='not ported (ROADMAP A.5.11)')
     # NaFlex variable-resolution training
     group = parser.add_argument_group('NaFlex parameters')
-    group.add_argument('--naflex-loader', action='store_true', help='not ported (ROADMAP A.5.8)')
+    group.add_argument('--naflex-loader', action='store_true', help='token-budget variable-res training')
     group.add_argument('--naflex-train-seq-lens', type=int, nargs='+', default=[128, 256, 576, 784, 1024])
     group.add_argument('--naflex-max-seq-len', type=int, default=576)
-    group.add_argument('--naflex-patch-sizes', type=int, nargs='+', default=None)
+    group.add_argument('--naflex-patch-sizes', type=int, nargs='+', default=None,
+                       help='patch sizes drawn per batch (budget mode); the projection kernel is '
+                            'resampled to each')
     return parser
 
 
@@ -258,9 +274,6 @@ class ParseKwargs(argparse.Action):
 _UNPORTED = (
     ('pretrained', 'A.5.1: no hub; carry weights with --initial-checkpoint'),
     ('grad_checkpointing', 'A.5.7'), ('block_scan', 'A.5.7'), ('distill', 'A.5.10'),
-    ('naflex_loader', 'A.5.8'), ('naflex_bucket_mode', 'A.5.8'),
-    ('naflex_train_seq_lens', 'A.5.8'), ('naflex_max_seq_len', 'A.5.8'),
-    ('naflex_patch_sizes', 'A.5.8'),
     ('fsdp', 'A.5.11'), ('tp', 'A.5.11'), ('distributed', 'A.5.11'), ('elastic', 'A.5.11'),
     ('nonfinite_rollback', 'A.5.11'),
     ('autotune', 'A.5.12'), ('autotune_probe_top_k', 'A.5.12'), ('log_wandb', 'A.5.12'),
@@ -342,6 +355,9 @@ def main(argv=None) -> int:
     """Train; returns the exit code (0, or 3 after the non-finite guard's
     abort). A SIGTERM ends the run with a recovery checkpoint and 0."""
     args, args_text = _parse_args(argv)
+    if args.naflex_loader and args.distill:
+        raise ValueError('--distill does not compose with --naflex-loader '
+                         '(the teacher forward expects dense NHWC batches)')
     check_unported(args)
 
     from ._device import resolve_device, use_full_fp32
@@ -358,7 +374,7 @@ def main(argv=None) -> int:
     )
     from .resilience.durable import atomic_write_bytes
     from .scheduler import create_scheduler_v2, scheduler_kwargs
-    from .task import ClassificationTask, Normalize
+    from .task import ClassificationTask, NaFlexClassificationTask, Normalize
     from .utils import CheckpointSaver, get_outdir, random_seed, setup_default_logging, update_summary
 
     if not logging.root.handlers:
@@ -426,6 +442,10 @@ def main(argv=None) -> int:
         raise ValueError('--fused-update requires a plain adamw optimizer (no lookahead, '
                          f'caution or layer decay); --opt {args.opt} is not one')
     norm_mean, norm_std = data_config['mean'], data_config['std']
+    if args.naflex_loader:
+        if not args.data_dir:
+            raise ValueError('--naflex-loader requires --data-dir')
+        norm_mean = norm_std = None  # the NaFlex loader normalizes on the host
     if args.device_augment:
         if args.grad_accum_steps != 1:
             raise ValueError('--device-augment yields device-resident batches; use '
@@ -433,13 +453,17 @@ def main(argv=None) -> int:
         if num_aug_splits > 1:
             raise ValueError('--device-augment does not compose with --aug-splits '
                              '(split-batch augmentation collates on host)')
-        if args.synthetic_data or not args.data_dir:
+        if not args.naflex_loader and (args.synthetic_data or not args.data_dir):
             raise ValueError('--device-augment needs a real dataset pipeline; '
                              'pass --data-dir (synthetic batches are already floats)')
         # the augment stage normalizes training batches; eval batches are
         # normalized in validate()
         norm_mean = norm_std = None
-    task = ClassificationTask(
+    task_kwargs = {}
+    if args.naflex_loader and (args.mixup > 0 or args.cutmix > 0):
+        # smoothing folds into the soft mixed targets
+        task_kwargs['mixup_label_smoothing'] = args.smoothing
+    task = (NaFlexClassificationTask if args.naflex_loader else ClassificationTask)(
         model,
         optimizer=optimizer,
         grad_accum_steps=args.grad_accum_steps,
@@ -450,8 +474,10 @@ def main(argv=None) -> int:
         nonfinite_guard=False if args.no_nonfinite_guard else None,
         nonfinite_tolerance=args.nonfinite_tolerance,
         seed=args.seed,
+        **task_kwargs,
     )
-    eval_norm = None if norm_mean is not None else Normalize(data_config['mean'], data_config['std'], device)
+    eval_norm = None if norm_mean is not None or args.naflex_loader else \
+        Normalize(data_config['mean'], data_config['std'], device)
 
     if args.jsd_loss:
         if num_aug_splits < 2:
@@ -474,7 +500,37 @@ def main(argv=None) -> int:
         task.setup_ema(decay=args.model_ema_decay, warmup=args.model_ema_warmup)
 
     # data
-    if args.synthetic_data or not args.data_dir:
+    if args.naflex_loader:
+        from .data.dataset_factory import create_dataset
+        from .data.naflex_loader import create_naflex_loader
+        patch_size = getattr(getattr(model, 'embeds', None), 'patch_size', 16)
+        dataset_train = create_dataset(
+            args.dataset, root=args.data_dir, split=args.train_split, is_training=True,
+            class_map=args.class_map)
+        dataset_eval = create_dataset(
+            args.dataset, root=args.data_dir, split=args.val_split, class_map=args.class_map)
+        loader_train = create_naflex_loader(
+            dataset_train, patch_size=patch_size,
+            patch_size_choices=tuple(args.naflex_patch_sizes) if args.naflex_patch_sizes else None,
+            train_seq_lens=tuple(args.naflex_train_seq_lens),
+            max_seq_len=args.naflex_max_seq_len,
+            batch_size=args.batch_size, is_training=True,
+            mean=data_config['mean'], std=data_config['std'],
+            interpolation=data_config['interpolation'], hflip=args.hflip,
+            mixup_alpha=args.mixup, cutmix_alpha=args.cutmix,
+            mixup_prob=args.mixup_prob, mixup_switch_prob=args.mixup_switch_prob,
+            re_prob=args.reprob, re_mode='pixel' if args.remode == 'pixel' else 'const',
+            seed=args.seed, grad_accum_steps=args.grad_accum_steps,
+            device_augment=args.device_augment, bucket_mode=args.naflex_bucket_mode,
+            device_prefetch=args.device_prefetch if args.device_augment else 0, device=device)
+        loader_eval = create_naflex_loader(
+            dataset_eval, patch_size=patch_size,
+            max_seq_len=args.naflex_max_seq_len,
+            batch_size=args.validation_batch_size or args.batch_size,
+            mean=data_config['mean'], std=data_config['std'],
+            interpolation=data_config['interpolation'], seed=args.seed)
+        mixup_fn = None  # the NaFlex loader mixes variable-size images itself
+    elif args.synthetic_data or not args.data_dir:
         _logger.info('Using synthetic data')
         loader_train = SyntheticLoader(args.synthetic_len, args.batch_size, img_size,
                                        args.num_classes, args.seed)
@@ -560,7 +616,12 @@ def main(argv=None) -> int:
                              '(mixup or --grad-accum-steps > 1 active); eval loader prefetches')
 
     steps_per_epoch = len(loader_train)
-    updates_per_epoch = (steps_per_epoch + args.grad_accum_steps - 1) // args.grad_accum_steps
+    if args.naflex_loader:
+        # each NaFlex batch is one update: the accumulation splits the
+        # accumulation-scaled batch inside the step
+        updates_per_epoch = steps_per_epoch
+    else:
+        updates_per_epoch = (steps_per_epoch + args.grad_accum_steps - 1) // args.grad_accum_steps
     lr_scheduler, num_epochs = create_scheduler_v2(
         base_lr=args.lr,
         **{k: v for k, v in scheduler_kwargs(args).items() if k != 'num_epochs'},
@@ -708,6 +769,10 @@ def _recovery_extras(batches_consumed, num_updates, args=None):
     return extras
 
 
+# a NaFlex batch's host scalars, which stay off the step
+_NAFLEX_HOST_KEYS = ('seq_len', 'patch_size')
+
+
 def train_one_epoch(epoch, task, loader, args, lr_scheduler, updates_per_epoch, saver=None,
                     mixup_fn=None, shutdown=None, injector=None, skip_batches=0, start_updates=None):
     from .resilience import TrainingPreempted
@@ -737,30 +802,39 @@ def train_one_epoch(epoch, task, loader, args, lr_scheduler, updates_per_epoch, 
     update_idx = skip_batches // accum  # display and recovery cadence carry on after a resume
     samples_since_log = 0
     log_t0 = time.time()
-    for batch_idx, (input_b, target_b) in enumerate(loader):
+    for batch_idx, batch_data in enumerate(loader):
         if batch_idx < skip_batches:
             continue  # mid-epoch resume: consumed before the preemption
-        if mixup_fn is not None:
-            input_b, target_b = mixup_fn(input_b, target_b)
-        micro_inputs.append(input_b)
-        micro_targets.append(target_b)
-        if len(micro_inputs) < accum:
-            continue
-        if accum > 1:  # host batches: --device-augment needs --grad-accum-steps 1
-            input_all = np.concatenate(micro_inputs, axis=0)
-            target_all = np.concatenate(micro_targets, axis=0)
+        if isinstance(batch_data, dict):
+            # a NaFlex dict batch is one update; its host scalars stay off the
+            # step (the model reads the patch size from the patch dim)
+            batch = {k: v for k, v in batch_data.items() if k not in _NAFLEX_HOST_KEYS}
+            n, seq = int(batch['patches'].shape[0]), f'seq: {batch_data["seq_len"]} '
         else:
-            input_all, target_all = micro_inputs[0], micro_targets[0]
-        micro_inputs, micro_targets = [], []
-        metrics = task.train_step({'input': input_all, 'target': target_all}, lr=lr, step=num_updates)
+            input_b, target_b = batch_data
+            if mixup_fn is not None:
+                input_b, target_b = mixup_fn(input_b, target_b)
+            micro_inputs.append(input_b)
+            micro_targets.append(target_b)
+            if len(micro_inputs) < accum:
+                continue
+            if accum > 1:  # host batches: --device-augment needs --grad-accum-steps 1
+                input_all = np.concatenate(micro_inputs, axis=0)
+                target_all = np.concatenate(micro_targets, axis=0)
+            else:
+                input_all, target_all = micro_inputs[0], micro_targets[0]
+            micro_inputs, micro_targets = [], []
+            batch = {'input': input_all, 'target': target_all}
+            n, seq = input_all.shape[0], ''
+        metrics = task.train_step(batch, lr=lr, step=num_updates)
         num_updates += 1
-        samples_since_log += input_all.shape[0]
+        samples_since_log += n
         if lr_scheduler is not None:
             lr = lr_scheduler.step_update(num_updates)[0]
         if update_idx % args.log_interval == 0:
             loss_val = float(metrics['loss'])  # the one read-back of a logged step
             if np.isfinite(loss_val):  # a skipped non-finite step must not poison the meter
-                loss_m.update(loss_val, n=input_all.shape[0])
+                loss_m.update(loss_val, n=n)
             elapsed = time.time() - log_t0
             ips = samples_since_log / max(elapsed, 1e-9)
             samples_since_log = 0
@@ -769,7 +843,7 @@ def train_one_epoch(epoch, task, loader, args, lr_scheduler, updates_per_epoch, 
             _logger.info(
                 f'Train: {epoch} [{update_idx:>4d}/{updates_per_epoch}] '
                 f'Loss: {loss_m.val:#.3g} ({loss_m.avg:#.3g}) LR: {lr:.3e} '
-                f'{ips:.1f} img/s' + (f' NaN-skipped: {nf}' if nf else ''))
+                f'{seq}{ips:.1f} img/s' + (f' NaN-skipped: {nf}' if nf else ''))
         if saver is not None and args.recovery_interval and (update_idx + 1) % args.recovery_interval == 0:
             saver.save_recovery(epoch, update_idx,
                                 extra_state=_recovery_extras(batch_idx + 1, num_updates, args))
@@ -805,13 +879,20 @@ def validate(task, loader, args, use_ema=False, normalize=None):
     loss_m = AverageMeter()
     top1_m = AverageMeter()
     top5_m = AverageMeter()
-    for input_b, target_b in loader:
-        if normalize is not None:
-            input_b = normalize(input_b)
-        n = int(input_b.shape[0])
-        if n == 0:
-            continue
-        output = task.eval_step({'input': input_b}, use_ema=use_ema)
+    for batch_data in loader:
+        if isinstance(batch_data, dict):
+            target_b = batch_data['target']
+            n = int(target_b.shape[0])
+            output = task.eval_step({k: v for k, v in batch_data.items()
+                                     if k not in _NAFLEX_HOST_KEYS + ('target',)}, use_ema=use_ema)
+        else:
+            input_b, target_b = batch_data
+            if normalize is not None:
+                input_b = normalize(input_b)
+            n = int(input_b.shape[0])
+            if n == 0:
+                continue
+            output = task.eval_step({'input': input_b}, use_ema=use_ema)
         loss, correct1, correct5, _ = eval_metrics(output, target_b)
         loss_m.update(float(loss), n)
         top1_m.update(float(correct1), n)
