@@ -285,10 +285,10 @@ def test_registry_matches_jax(jx, monkeypatch):
     base = timm_tpu_torch.create_model('convnext_base', device='meta')
     assert sum(p.numel() for p in base.parameters()) == 88_591_464
     assert len(list(base.parameters())) == 344 and base.no_weight_decay() == set()
-    with pytest.raises(NotImplementedError, match='A.5.7'):
-        base.set_grad_checkpointing(True)
-    with pytest.raises(NotImplementedError, match='A.5.7'):
-        timm_tpu_torch.create_model('test_convnext2', device='meta', stage_scan=True)
+    base.set_grad_checkpointing(True)
+    assert all(s.grad_checkpointing for s in base.stages)
+    scanned = timm_tpu_torch.create_model('test_convnext2', device='meta', stage_scan=True)
+    assert all(s.stage_scan for s in scanned.stages)
 
 
 def test_contract_intermediates_prune_and_reset():

@@ -324,7 +324,7 @@ def test_drivers_raise_for_unported_flags_and_without_a_card():
     import torch
 
     from timm_tpu_torch import inference, train, validate
-    for flag, item in (('--fsdp=2', 'A.5.11'), ('--grad-checkpointing', 'A.5.7'),
+    for flag, item in (('--fsdp=2', 'A.5.11'), ('--tp=2', 'A.5.11'),
                        ('--distill=teacher=x', 'A.5.10')):
         with pytest.raises(NotImplementedError, match=item):
             train.main(COMMON + [flag])

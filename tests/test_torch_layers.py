@@ -187,6 +187,6 @@ def test_dispatcher_on_card_takes_the_kernel_or_raises():
     with pytest.raises(NotImplementedError, match='mask of shape'):
         scaled_dot_product_attention(q, q, q, attn_mask=torch.ones(2, 1, 37, 37, dtype=torch.bool,
                                                                    device='cuda'))
-    odd = torch.randn(2, 2, 37, 48, device='cuda').to(torch.bfloat16)
+    odd = torch.randn(2, 2, 37, 44, device='cuda').to(torch.bfloat16)  # not a multiple of 8
     with pytest.raises(NotImplementedError, match='head dims'):
         scaled_dot_product_attention(odd, odd, odd)

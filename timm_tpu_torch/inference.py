@@ -8,9 +8,11 @@ batch, the last one padded, runs at one bucket shape. It runs on ``cuda``
 unless ``--device cpu`` is given, and raises with no card; on the card TF32
 is off (``_device.use_full_fp32``).
 
-``--label-type`` other than ``index`` (class names from ImageNet metadata),
-``--block-scan`` and ``--pretrained`` raise ``NotImplementedError`` naming
-their ROADMAP item.
+``--label-type`` other than ``index`` (class names from ImageNet metadata)
+and ``--pretrained`` raise ``NotImplementedError`` naming their ROADMAP
+item. ``--block-scan`` is accepted (the block loop runs as a graph replay
+either way); ``--model-kwargs`` passes the model arguments a checkpoint was
+trained with, as in ``validate``.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ import time
 
 import numpy as np
 import torch
+
+from .train import ParseKwargs
 
 _logger = logging.getLogger('inference')
 
@@ -41,6 +45,8 @@ parser.add_argument('--input-size', default=None, nargs=3, type=int)
 parser.add_argument('--crop-pct', default=None, type=float)
 parser.add_argument('--crop-mode', default=None, type=str)
 parser.add_argument('--num-classes', type=int, default=None)
+parser.add_argument('--model-kwargs', nargs='*', default={}, action=ParseKwargs,
+                    help='model arguments, key=value (as the train script takes them)')
 parser.add_argument('--class-map', default='', type=str)
 parser.add_argument('--label-type', default='index', type=str,
                     choices=['index', 'name', 'description', 'detail'],
@@ -56,12 +62,11 @@ parser.add_argument('--output-dir', default=None)
 parser.add_argument('--output-type', default='csv', choices=['csv', 'json', 'parquet'])
 parser.add_argument('--filename-col', default='filename')
 parser.add_argument('--block-scan', action='store_true', default=False,
-                    help='not ported (ROADMAP A.5.7)')
+                    help="accepted: the model's block loop runs as a CUDA graph replay either way")
 parser.add_argument('--device-prefetch', type=int, default=0, metavar='N',
                     help='keep N batches in flight on the device while the step runs; 0 disables')
 
-_UNPORTED = (('pretrained', 'A.5.1: no hub; pass --checkpoint'), ('label_type', 'A.5.1'),
-             ('block_scan', 'A.5.7'))
+_UNPORTED = (('pretrained', 'A.5.1: no hub; pass --checkpoint'), ('label_type', 'A.5.1'))
 
 
 def main(argv=None) -> int:

@@ -51,12 +51,22 @@
 // O is staged through the warp's own Q rows so the store to (B, N, H, D) is
 // 16 bytes a thread.
 //
-// Block shapes (Config16). D <= 64: 8 warps, so 128 query rows share each
+// Shapes. q holds Nq rows a (batch, head) and k, v and the key-padding mask
+// Nk, which may differ (the 'map' pool's latent queries attend to N tokens).
+// The head dim D is any multiple of 8 up to 256: the kernel is built for the
+// padded dims DP in {32, 48, 64, 80, 96, 128, 160, 192, 256} and a call runs
+// on the smallest DP >= D (so400m's 72 on 80, ViT-H/14's 80 as it is). The
+// copies zero-fill columns D .. DP of Q, K and V in shared memory (cp.async
+// with a source size of 0: nothing beyond D is read), so the pad adds
+// nothing to a score; only D columns of O are stored.
+//
+// Block shapes (Config16), by DP. DP <= 64: 8 warps, so 128 query rows share each
 // K/V tile (half the L2 re-reads of 4 warps), a 3-stage ring, and a cap of
 // 128 registers so that 2 blocks fit an SM; at D = 64, Q fragments held in
 // registers would spill under that cap, so Q is re-read from shared memory
-// (4 ldmatrix a tile beside the 32 of K and V). D = 128: 4 warps, 2 stages,
-// Q in registers. D = 256: 4 warps, key tiles of 32, Q in shared memory.
+// (4 ldmatrix a tile beside the 32 of K and V); DP = 32 and 48 hold Q in
+// registers. DP = 80 to 192: 4 warps, 2 stages, Q in registers. DP = 256: 4
+// warps, key tiles of 32, Q in shared memory.
 //
 // fp32: the shared-memory kernel of the previous design
 // (csrc/previous/flash_attention.cu), kept apart below and chosen by dtype: CUDA-core FMA loops, so no input is rounded to TF32.
@@ -90,9 +100,10 @@ struct Params {
   const void* q;
   const void* k;
   const void* v;
-  const unsigned char* mask;  // (B, N) key-padding mask, 1 = valid key; may be null
+  const unsigned char* mask;  // (B, Nk) key-padding mask, 1 = valid key; may be null
   void* o;
-  int H, N;
+  int H, Nq, Nk;
+  int D;  // the head dim; the kernel is built for DP >= D and zero-fills columns D..DP
   long long q_sb, q_sh, q_sn;
   long long k_sb, k_sh, k_sn;
   long long v_sb, v_sh, v_sn;
@@ -128,19 +139,20 @@ __device__ __forceinline__ float tpu_key_slots(int n) {
   return static_cast<float>((n + block - 1) / block * block);
 }
 
-// Copy rows [row0, row0 + R) of a (N, D) slab into shared memory with 16-byte
-// vector loads; rows at or beyond N are zero-filled. When `kScale`, each
-// element becomes T(float(x) * scale), the TPU kernel's q pre-scaling.
-template <typename T, int D, int R, int LD, bool kScale>
+// Copy rows [row0, row0 + R) of a (N, d) slab into shared memory as DP
+// columns with 16-byte vector loads; rows at or beyond N and columns at or
+// beyond d are zero-filled. When `kScale`, each element becomes
+// T(float(x) * scale), the TPU kernel's q pre-scaling.
+template <typename T, int DP, int R, int LD, bool kScale>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, long long stride_n, int row0, int n,
-                                          float scale) {
+                                          int d, float scale) {
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = D / kVec;
+  constexpr int kChunks = DP / kVec;
   for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
     const int r = i / kChunks;
     const int c = (i % kChunks) * kVec;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) {
+    if (row0 + r < n && c < d) {
       val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride_n + c);
       if (kScale) {
         T* e = reinterpret_cast<T*>(&val);
@@ -366,6 +378,11 @@ __device__ __forceinline__ void attend_tile(const T* qw, const T* kt, const T* v
   }
 }
 
+// D here is the padded head dim DP (a multiple of 16, the mma k-step); the
+// caller's head dim p.D <= DP is a multiple of 8. Columns p.D .. DP of Q, K
+// and V are zero-filled in shared memory by the copies themselves (cp.async
+// with a source size of 0), so they add nothing to the scores; only p.D
+// columns of O are stored.
 template <typename T, int D, typename L>
 __global__ void __launch_bounds__(L::kBlock, L::MINB) flash_fwd_kernel(const Params p) {
   constexpr int BQ = L::BQ, BK = L::BK, LD = L::LD, NS = L::NS;
@@ -380,7 +397,7 @@ __global__ void __launch_bounds__(L::kBlock, L::MINB) flash_fwd_kernel(const Par
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
-  const int n = p.N;
+  const int nq = p.Nq, nk = p.Nk, dh = p.D;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
@@ -388,9 +405,8 @@ __global__ void __launch_bounds__(L::kBlock, L::MINB) flash_fwd_kernel(const Par
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t4 = lane & 3;
-  const int ntiles = (n + BK - 1) / BK;
+  const int ntiles = (nk + BK - 1) / BK;
 
-  static_assert((BK * kChunks) % L::kBlock == 0 && (BQ * kChunks) % L::kBlock == 0, "whole copy rounds");
   // copies key tile `tile` into ring stage tile % NS; every call commits one
   // copy group, empty past the last tile, so the group count stays regular
   auto load_kv = [&](int tile) {
@@ -399,13 +415,16 @@ __global__ void __launch_bounds__(L::kBlock, L::MINB) flash_fwd_kernel(const Par
       T* kd = ks + (tile % NS) * BK * LD;
       T* vd = vs + (tile % NS) * BK * LD;
 #pragma unroll
-      for (int it = 0; it < BK * kChunks / L::kBlock; ++it) {
+      for (int it = 0; it < (BK * kChunks + L::kBlock - 1) / L::kBlock; ++it) {
         const int i = it * L::kBlock + tid;
-        const int r = i / kChunks, c = (i % kChunks) * 8;
-        const bool valid = kv0 + r < n;
-        const long long row = valid ? kv0 + r : 0;
-        cp_async_16(smem_addr(kd + r * LD + c), k + row * p.k_sn + c, valid);
-        cp_async_16(smem_addr(vd + r * LD + c), v + row * p.v_sn + c, valid);
+        if (i < BK * kChunks) {
+          const int r = i / kChunks, c = (i % kChunks) * 8;
+          const bool valid = kv0 + r < nk && c < dh;
+          const long long row = valid ? kv0 + r : 0;
+          const int col = valid ? c : 0;
+          cp_async_16(smem_addr(kd + r * LD + c), k + row * p.k_sn + col, valid);
+          cp_async_16(smem_addr(vd + r * LD + c), v + row * p.v_sn + col, valid);
+        }
       }
     }
     cp_async_commit();
@@ -414,18 +433,20 @@ __global__ void __launch_bounds__(L::kBlock, L::MINB) flash_fwd_kernel(const Par
   // Q rides in the first copy group; each warp scales its own rows after
   // the first barrier
 #pragma unroll
-  for (int it = 0; it < BQ * kChunks / L::kBlock; ++it) {
+  for (int it = 0; it < (BQ * kChunks + L::kBlock - 1) / L::kBlock; ++it) {
     const int i = it * L::kBlock + tid;
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool valid = q0 + r < n;
-    const long long row = valid ? q0 + r : 0;
-    cp_async_16(smem_addr(qs + r * LD + c), q + row * p.q_sn + c, valid);
+    if (i < BQ * kChunks) {
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      const bool valid = q0 + r < nq && c < dh;
+      const long long row = valid ? q0 + r : 0;
+      cp_async_16(smem_addr(qs + r * LD + c), q + row * p.q_sn + (valid ? c : 0), valid);
+    }
   }
 #pragma unroll
   for (int t = 0; t < NS - 1; ++t) load_kv(t);
 
   const int row0 = q0 + warp * 16;  // the warp's first query row
-  const bool active = row0 < n;
+  const bool active = row0 < nq;
   T* qw = qs + warp * 16 * LD;
   uint32_t qf[L::kQInRegs ? NKS : 1][4];
   float o[ND][4];
@@ -436,7 +457,7 @@ __global__ void __launch_bounds__(L::kBlock, L::MINB) flash_fwd_kernel(const Par
 
   for (int tile = 0; tile < ntiles; ++tile) {
     const int kv0 = tile * BK;
-    const int nvalid = min(BK, n - kv0);
+    const int nvalid = min(BK, nk - kv0);
     const bool guard = mask != nullptr || nvalid < BK;
     // validity of the tile's keys, once a tile: lane L holds keys kv0 + 2L
     // and kv0 + 2L + 1; bit 4j + t of each word is then the key pair of
@@ -444,8 +465,8 @@ __global__ void __launch_bounds__(L::kBlock, L::MINB) flash_fwd_kernel(const Par
     uint32_t valid_even = 0xffffffffu, valid_odd = 0xffffffffu;
     if (guard) {
       const int key = kv0 + 2 * lane;
-      bool even = 2 * lane < BK && key < n;
-      bool odd = 2 * lane + 1 < BK && key + 1 < n;
+      bool even = 2 * lane < BK && key < nk;
+      bool odd = 2 * lane + 1 < BK && key + 1 < nk;
       if (mask != nullptr) {
         even = even && mask[key] != 0;
         odd = odd && mask[key + 1] != 0;
@@ -458,7 +479,8 @@ __global__ void __launch_bounds__(L::kBlock, L::MINB) flash_fwd_kernel(const Par
     load_kv(tile + NS - 1);
     if (!active) continue;
     if (tile == 0) {
-      // q * scale rounded to T, the TPU kernel's pre-scaling, in place
+      // q * scale rounded to T, the TPU kernel's pre-scaling, in place (the
+      // zero-filled pad columns stay zero)
 #pragma unroll
       for (int i = lane; i < 16 * kChunks; i += 32) {
         uint4* chunk = reinterpret_cast<uint4*>(qw + (i / kChunks) * LD + (i % kChunks) * 8);
@@ -487,12 +509,12 @@ __global__ void __launch_bounds__(L::kBlock, L::MINB) flash_fwd_kernel(const Par
 
   // out = acc / max(l, 1e-30) (a fully masked row: acc / the TPU kernel's
   // key slots), staged in the warp's own Q rows, then stored 16 bytes a
-  // thread
+  // thread, the first p.D columns only
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = m[r] == kMaskValue ? tpu_key_slots(n) : fmaxf(l[r], 1e-30f);
+    l[r] = m[r] == kMaskValue ? tpu_key_slots(nk) : fmaxf(l[r], 1e-30f);
   }
   __syncwarp();  // at D = 256 the warp read Q from these rows
 #pragma unroll
@@ -506,7 +528,7 @@ __global__ void __launch_bounds__(L::kBlock, L::MINB) flash_fwd_kernel(const Par
 #pragma unroll
   for (int i = lane; i < 16 * kChunks; i += 32) {
     const int r = i / kChunks, c = (i % kChunks) * 8;
-    if (row0 + r < n) {
+    if (row0 + r < nq && c < dh) {
       *reinterpret_cast<uint4*>(out + (row0 + r) * p.o_sn + c) = *reinterpret_cast<const uint4*>(qw + r * LD + c);
     }
   }
@@ -548,13 +570,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_fp32(const Params p
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
-  const int n = p.N;
+  const int nq = p.Nq, nk = p.Nk, dh = p.D;
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   const unsigned char* mask = p.mask ? p.mask + b * p.mask_sb : nullptr;
 
-  load_rows<float, D, BQ, L::LD, true>(qs, q, p.q_sn, q0, n, p.scale);
+  load_rows<float, D, BQ, L::LD, true>(qs, q, p.q_sn, q0, nq, dh, p.scale);
   for (int i = threadIdx.x; i < BQ * L::LDO; i += kThreads) os[i] = 0.0f;
   for (int i = threadIdx.x; i < BQ; i += kThreads) {
     row_m[i] = kMaskValue;
@@ -563,9 +585,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_fp32(const Params p
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  for (int kv0 = 0; kv0 < n; kv0 += BK) {
-    load_rows<float, D, BK, L::LD, false>(ks, k, p.k_sn, kv0, n, 0.0f);
-    load_rows<float, D, BK, L::LD, false>(vs, v, p.v_sn, kv0, n, 0.0f);
+  for (int kv0 = 0; kv0 < nk; kv0 += BK) {
+    load_rows<float, D, BK, L::LD, false>(ks, k, p.k_sn, kv0, nk, dh, 0.0f);
+    load_rows<float, D, BK, L::LD, false>(vs, v, p.v_sn, kv0, nk, dh, 0.0f);
     __syncthreads();
 
     for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
@@ -580,7 +602,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_fp32(const Params p
     // online softmax: each warp owns rows warp, warp + 4, ...; one key a lane
     for (int r = warp; r < BQ; r += kWarps) {
       const int key = kv0 + lane;
-      const bool valid = key < n && (mask == nullptr || mask[key] != 0);
+      const bool valid = key < nk && (mask == nullptr || mask[key] != 0);
       const float s = valid ? ss[r * L::LDS + lane] : kMaskValue;
       float mx = s;
 #pragma unroll
@@ -613,11 +635,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_fp32(const Params p
   }
 
   float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const float masked_row_l = tpu_key_slots(n);
+  const float masked_row_l = tpu_key_slots(nk);
   for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
     const float l = row_m[r] == kMaskValue ? masked_row_l : fmaxf(row_l[r], 1e-30f);
-    if (q0 + r < n) o[(q0 + r) * p.o_sn + d] = os[r * L::LDO + d] / l;
+    if (q0 + r < nq && d < dh) o[(q0 + r) * p.o_sn + d] = os[r * L::LDO + d] / l;
   }
 }
 
@@ -645,8 +667,8 @@ struct Kernel<float, D> {
 template <typename T, int D>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   using K = Kernel<T, D>;
-  if (p.N == 0 || batch == 0 || p.H == 0) return 0;
-  const dim3 grid((p.N + K::BQ - 1) / K::BQ, p.H, batch);
+  if (p.Nq == 0 || p.Nk == 0 || batch == 0 || p.H == 0) return 0;
+  const dim3 grid((p.Nq + K::BQ - 1) / K::BQ, p.H, batch);
   cudaError_t attr = cudaSuccess;
   if constexpr (std::is_same<T, float>::value) {
     if (K::bytes > 48 * 1024)
@@ -662,12 +684,29 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The built head dims: a head dim d (a multiple of 8 up to 256) runs on the
+// smallest of them that is >= d, its columns beyond d zero-filled. Every
+// multiple of 16 up to 96 is built (the ViT family's 48, 72 -> 80, 88 -> 96),
+// then 128, 160, 192 and 256.
+int padded_head_dim(int d) {
+  if (d <= 0 || d > 256 || d % 8 != 0) return -1;
+  constexpr int kBuilt[] = {32, 48, 64, 80, 96, 128, 160, 192, 256};
+  for (int dp : kBuilt)
+    if (d <= dp) return dp;
+  return -1;
+}
+
 template <typename T>
 int dispatch_dim(int head_dim, const Params& p, int batch, cudaStream_t stream) {
-  switch (head_dim) {
+  switch (padded_head_dim(head_dim)) {
     case 32: return launch<T, 32>(p, batch, stream);
+    case 48: return launch<T, 48>(p, batch, stream);
     case 64: return launch<T, 64>(p, batch, stream);
+    case 80: return launch<T, 80>(p, batch, stream);
+    case 96: return launch<T, 96>(p, batch, stream);
     case 128: return launch<T, 128>(p, batch, stream);
+    case 160: return launch<T, 160>(p, batch, stream);
+    case 192: return launch<T, 192>(p, batch, stream);
     case 256: return launch<T, 256>(p, batch, stream);
     default: return -1;
   }
@@ -675,10 +714,15 @@ int dispatch_dim(int head_dim, const Params& p, int batch, cudaStream_t stream) 
 
 template <typename T>
 long long smem_for_dim(int head_dim) {
-  switch (head_dim) {
+  switch (padded_head_dim(head_dim)) {
     case 32: return Kernel<T, 32>::bytes;
+    case 48: return Kernel<T, 48>::bytes;
     case 64: return Kernel<T, 64>::bytes;
+    case 80: return Kernel<T, 80>::bytes;
+    case 96: return Kernel<T, 96>::bytes;
     case 128: return Kernel<T, 128>::bytes;
+    case 160: return Kernel<T, 160>::bytes;
+    case 192: return Kernel<T, 192>::bytes;
     case 256: return Kernel<T, 256>::bytes;
     default: return -1;
   }
@@ -686,14 +730,16 @@ long long smem_for_dim(int head_dim) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16. Strides are in elements;
-// the last dimension of q, k, v and o must be contiguous and every row must
-// start on a 16-byte boundary. Returns the cudaError_t of the launch, or -1
-// for a head dim or dtype this library was not built for.
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16. q and o hold seq_q rows a
+// (batch, head), k, v and the mask seq_k. Strides are in elements; the last
+// dimension of q, k, v and o must be contiguous and every row must start on
+// a 16-byte boundary. Returns the cudaError_t of the launch, or -1 for a
+// head dim (not a multiple of 8 up to 256) or dtype this library does not
+// take.
 extern "C" int timm_flash_attention_fwd(
     int dtype, int head_dim,
     const void* q, const void* k, const void* v, const void* mask, void* o,
-    int batch, int heads, int seq,
+    int batch, int heads, int seq_q, int seq_k,
     long long q_sb, long long q_sh, long long q_sn,
     long long k_sb, long long k_sh, long long k_sn,
     long long v_sb, long long v_sh, long long v_sn,
@@ -706,7 +752,9 @@ extern "C" int timm_flash_attention_fwd(
   p.mask = static_cast<const unsigned char*>(mask);
   p.o = o;
   p.H = heads;
-  p.N = seq;
+  p.Nq = seq_q;
+  p.Nk = seq_k;
+  p.D = head_dim;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_sn = q_sn;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_sn = k_sn;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_sn = v_sn;

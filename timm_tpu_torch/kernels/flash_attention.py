@@ -38,10 +38,16 @@ then overwritten with JAX's value by the attention layer
 (``layers/attention.py``).
 
 The input contract is the JAX one: an optional bool key-padding mask of shape
-(B, N) or (B, 1, 1, N), True = valid key; any other mask raises, because the
-kernel would silently drop its structure. Multi-head attention only (q, k and
-v of one shape), D <= 256; the kernel is built for D in ``KERNEL_HEAD_DIMS``
-and bf16, fp16 or fp32.
+(B, Nk) or (B, 1, 1, Nk), True = valid key; any other mask raises, because
+the kernel would silently drop its structure. Multi-head attention: q is
+(B, H, Nq, D) and k, v are (B, H, Nk, D), where Nq and Nk may differ (the
+'map' pool's latent queries attend to the N tokens), as the TPU kernel's
+wrapper pads queries and keys apart. The head dim is any multiple of 8 up
+to 256, as the ViT family needs (so400m's 72, ViT-H/14's 80): the kernel is
+built for the padded dims ``KERNEL_HEAD_DIMS`` and runs a head dim on the
+smallest of them that holds it, zero-filling the pad columns in shared
+memory (``kernel_head_dim``); no padded copy is made in Python. bf16, fp16
+or fp32.
 
 ``flash_attention`` takes the plain version for CPU tensors only. For CUDA
 tensors it launches the kernel or raises: there is no fallback. Each kernel
@@ -67,10 +73,20 @@ import torch
 from ._build import load_library
 
 __all__ = ['KERNEL_HEAD_DIMS', 'flash_attention', 'flash_attention_backward',
-           'flash_attention_reference', 'kernel_smem_bytes', 'tpu_key_slots']
+           'flash_attention_reference', 'kernel_head_dim', 'kernel_smem_bytes', 'tpu_key_slots']
 
-KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+# the padded head dims the kernel is built for (csrc/flash_attention.cu
+# padded_head_dim)
+KERNEL_HEAD_DIMS = (32, 48, 64, 80, 96, 128, 160, 192, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+
+def kernel_head_dim(d: int) -> Optional[int]:
+    """The padded head dim the kernel runs a head dim ``d`` on, or None
+    where it takes no such ``d`` (not a multiple of 8 up to 256)."""
+    if d <= 0 or d % 8 or d > 256:
+        return None
+    return next(dp for dp in KERNEL_HEAD_DIMS if d <= dp)
 
 
 def tpu_key_slots(n: int) -> int:
@@ -87,7 +103,8 @@ def flash_attention_reference(q, k, v, mask=None, scale: Optional[float] = None)
     with the TPU kernel's value where a batch row's keys are all masked:
     the fp32 sum of v over the keys over ``tpu_key_slots(N)``."""
     from ..layers.attention import _sdpa
-    out = _sdpa(q, k, v, attn_mask=mask, scale=scale)
+    # the kernel keeps an fp32 softmax whatever the softmax policy says
+    out = _sdpa(q, k, v, attn_mask=mask, scale=scale, softmax_dtype=torch.float32)
     if mask is None:
         return out
     dead = ~mask.reshape(mask.shape[0], -1).any(dim=-1)
@@ -118,7 +135,7 @@ def _library():
     lib = load_library('flash_attention').lib
     p, i64 = ctypes.c_void_p, ctypes.c_longlong
     lib.timm_flash_attention_fwd.argtypes = (
-        [ctypes.c_int, ctypes.c_int] + [p] * 5 + [ctypes.c_int] * 3
+        [ctypes.c_int, ctypes.c_int] + [p] * 5 + [ctypes.c_int] * 4
         + [i64] * 13 + [ctypes.c_float, p])
     lib.timm_flash_attention_fwd.restype = ctypes.c_int
     lib.timm_flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -156,14 +173,15 @@ def _launch(q, k, v, key_mask, scale: float):
         raise NotImplementedError(
             f'flash_attention kernel takes bf16, fp16 or fp32 q/k/v of one dtype; '
             f'got {q.dtype}, {k.dtype}, {v.dtype}')
-    B, H, N, D = q.shape
-    if D not in KERNEL_HEAD_DIMS:
+    B, H, Nq, D = q.shape
+    Nk = k.shape[2]
+    if kernel_head_dim(D) is None:
         raise NotImplementedError(
-            f'flash_attention kernel is built for head dims {KERNEL_HEAD_DIMS}; got {D}')
+            f'flash_attention kernel takes head dims that are multiples of 8 up to 256; got {D}')
     q, k, v = (_vector_aligned(t) for t in (q, k, v))
-    # (B, N, H, D) storage viewed as (B, H, N, D): the caller's merge of the
-    # heads back into (B, N, H*D) is then a view, not a copy
-    out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    # (B, Nq, H, D) storage viewed as (B, H, Nq, D): the caller's merge of the
+    # heads back into (B, Nq, H*D) is then a view, not a copy
+    out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     mask_ptr, mask_sb = None, 0
     if key_mask is not None:
         key_mask = key_mask.to(device=q.device).contiguous()
@@ -175,7 +193,7 @@ def _launch(q, k, v, key_mask, scale: float):
         rc = lib.timm_flash_attention_fwd(
             _DTYPE_CODES[q.dtype], D,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
-            B, H, N,
+            B, H, Nq, Nk,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -237,13 +255,15 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, mask=None, scale: Optional[float] = None):
-    """(B, H, N, D) attention with an optional bool key-padding mask."""
+    """(B, H, Nq, D) queries over (B, H, Nk, D) keys and values, with an
+    optional bool key-padding mask of shape (B, Nk) or (B, 1, 1, Nk)."""
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
-    key_mask = _key_padding_mask(q, k, mask)
-    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+    if (q.ndim != 4 or k.shape != v.shape or k.ndim != 4
+            or (k.shape[0], k.shape[1], k.shape[3]) != (q.shape[0], q.shape[1], q.shape[3])):
         raise ValueError(
-            f'flash_attention is multi-head attention only: q, k, v of one (B, H, N, D) '
-            f'shape; got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}')
+            f'flash_attention is multi-head attention only: q (B, H, Nq, D), k and v '
+            f'(B, H, Nk, D); got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}')
+    key_mask = _key_padding_mask(q, k, mask)
     if q.shape[-1] > 256:
         raise ValueError(f'flash_attention takes head dims up to 256; got {q.shape[-1]}')
     devices = {t.device for t in (q, k, v)}
@@ -269,32 +289,35 @@ flash_attention.launches = 0
 
 def _registry_inputs(seed: int = 0, device='cuda', batch: int = 2, heads: int = 2,
                      seq: int = 576, head_dim: int = 64, valid_frac: Optional[float] = 0.8,
-                     valid: Optional[int] = None, dtype: str = 'float32'):
-    """q, k, v as the JAX registry draws them (standard normal times 0.5,
-    from one numpy generator) and a (B, 1, 1, N) key-padding mask: with
+                     valid: Optional[int] = None, dtype: str = 'float32',
+                     seq_k: Optional[int] = None):
+    """q (B, H, seq, D), k and v (B, H, seq_k, D) (seq_k defaults to seq)
+    as the JAX registry draws them (standard normal times 0.5, from one
+    numpy generator) and a (B, 1, 1, seq_k) key-padding mask: with
     ``valid``, that many valid keys in every row; else with ``valid_frac``
-    the JAX registry's prefix of int(N * valid_frac) - 8 i keys in row i;
-    with neither, no mask."""
+    the JAX registry's prefix of int(seq_k * valid_frac) - 8 i keys in row
+    i; with neither, no mask."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    shape = (batch, heads, seq, head_dim)
+    seq_k = seq if seq_k is None else seq_k
+    shapes = [(batch, heads, n, head_dim) for n in (seq, seq_k, seq_k)]
     q, k, v = (torch.from_numpy((rng.standard_normal(shape) * 0.5).astype(np.float32))
-               .to(device=device, dtype=getattr(torch, dtype)) for _ in range(3))
+               .to(device=device, dtype=getattr(torch, dtype)) for shape in shapes)
     mask = None
     if valid is not None or valid_frac is not None:
-        rows = [valid if valid is not None else max(1, int(seq * valid_frac) - 8 * i)
+        rows = [valid if valid is not None else max(1, int(seq_k * valid_frac) - 8 * i)
                 for i in range(batch)]
-        mask = torch.from_numpy(np.arange(seq)[None, :] < np.asarray(rows)[:, None])
-        mask = mask.view(batch, 1, 1, seq).to(device)
+        mask = torch.from_numpy(np.arange(seq_k)[None, :] < np.asarray(rows)[:, None])
+        mask = mask.view(batch, 1, 1, seq_k).to(device)
     return dict(q=q, k=k, v=v, mask=mask)
 
 
 def _registry_flops(q, k, v, mask):
-    """4 N keys D operations per query row (two products), over the keys
+    """4 keys D operations per query row (two products), over the keys
     this mask keeps, in the inputs' type."""
-    B, H, N, D = q.shape
-    keys = B * N if mask is None else int(mask.sum())
-    return 4 * H * N * keys * D, str(q.dtype).replace('torch.', '')
+    B, H, Nq, D = q.shape
+    keys = B * k.shape[2] if mask is None else int(mask.sum())
+    return 4 * H * Nq * keys * D, str(q.dtype).replace('torch.', '')
 
 
 # bits of relative precision of the input's type, which the scores (in the
@@ -337,8 +360,9 @@ def _register():
         name='flash_attention',
         module=__name__,
         regime='every attention of the port on the card: ViT-B/16 serving buckets (N 197, '
-               'D 64, bf16 or fp16) and key-padding-masked N in {128, 256, 576, 784, 1024} '
-               '(the NaFlex buckets)',
+               'D 64, bf16 or fp16), key-padding-masked N in {128, 256, 576, 784, 1024} '
+               '(the NaFlex buckets), and the ViT family\'s head dims (so400m 72 on 80, '
+               'ViT-H/14 80) with the map pool\'s Nq 1 over Nk 256',
         gate='beat the plain attention at every declared case on the card, or be deleted; '
              'the library call is timed beside it and decides nothing',
         parity_tol=2e-2,
@@ -401,6 +425,28 @@ def _register():
                        live=dict(batch=36, heads=12, seq=1024, head_dim=64, valid=1013,
                                  dtype='bfloat16'),
                        desc='NaFlex train bucket 1024 (B 36), key-padded'),
+            # the ViT family's head dims beyond the four of the first design:
+            # vit_so400m_patch14_siglip_224 (16 heads of 72 on the kernel's
+            # padded 80, 256 tokens) at its serving bucket 64, its 'map' pool's
+            # single latent query over the 256 tokens, and ViT-H/14 (80)
+            KernelCase(name='so400m_b64',
+                       dry=dict(batch=2, heads=2, seq=40, head_dim=72, valid_frac=None,
+                                dtype='bfloat16'),
+                       live=dict(batch=64, heads=16, seq=256, head_dim=72, valid_frac=None,
+                                 dtype='bfloat16'),
+                       desc='vit_so400m_patch14_siglip_224 serving bucket 64, D 72'),
+            KernelCase(name='so400m_map_pool',
+                       dry=dict(batch=2, heads=2, seq=1, seq_k=40, head_dim=72, valid_frac=None,
+                                dtype='bfloat16'),
+                       live=dict(batch=64, heads=16, seq=1, seq_k=256, head_dim=72,
+                                 valid_frac=None, dtype='bfloat16'),
+                       desc="so400m's 'map' pool: 1 latent query over 256 keys (Nq != Nk)"),
+            KernelCase(name='vit_h14_b64',
+                       dry=dict(batch=2, heads=2, seq=37, head_dim=80, valid_frac=None,
+                                dtype='bfloat16'),
+                       live=dict(batch=64, heads=16, seq=257, head_dim=80, valid_frac=None,
+                                 dtype='bfloat16'),
+                       desc='vit_huge_patch14_224 bucket 64, D 80 (257 tokens, a ragged tile)'),
         ),
     ))
 

@@ -105,13 +105,19 @@ def _inputs(spec: KernelSpec, case: KernelCase, live: bool, device, seed: int) -
     return spec.make_inputs(seed=seed, device=device, **(case.live if live else case.dry))
 
 
+def _on(inputs: Dict, device) -> Dict:
+    return {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in inputs.items()}
+
+
 def parity_check(spec: KernelSpec, case: KernelCase, *, live: bool = False, device='cuda',
-                 seed: int = 0) -> Dict:
+                 seed: int = 0, inputs: Optional[Dict] = None) -> Dict:
     """Max abs difference of the kernel and its plain version on one case's
-    inputs, leaf for leaf over the outputs, in fp64, against ``parity_tol``;
-    with the spec's ``error_bound``, also the largest ratio of an element's
-    difference to its bound, against 1."""
-    inputs = _inputs(spec, case, live, device, seed)
+    inputs (``inputs``, else drawn by the spec), leaf for leaf over the
+    outputs, in fp64, against ``parity_tol``; with the spec's
+    ``error_bound``, also the largest ratio of an element's difference to
+    its bound, against 1."""
+    if inputs is None:
+        inputs = _inputs(spec, case, live, device, seed)
     with torch.no_grad():
         leaves_k = _leaves(spec.kernel_fn(**inputs, **case.statics))
         out_r = spec.reference_fn(**inputs, **case.statics)
@@ -146,16 +152,18 @@ def parity_check(spec: KernelSpec, case: KernelCase, *, live: bool = False, devi
 
 
 def ab_case(spec: KernelSpec, case: KernelCase, *, live: bool = True, device='cuda',
-            seed: int = 0, timer: Optional[Callable] = None) -> Dict:
-    """Time the kernel, its plain version and the library call at one case,
-    with the case's bound from the registry. ``timer(fn, graph)`` is the
-    clock, ``card_timer`` by default."""
+            seed: int = 0, timer: Optional[Callable] = None,
+            inputs: Optional[Dict] = None) -> Dict:
+    """Time the kernel, its plain version and the library call at one case
+    (on ``inputs``, else drawn by the spec), with the case's bound from the
+    registry. ``timer(fn, graph)`` is the clock, ``card_timer`` by default."""
     device = torch.device(device)
     if timer is None:
         if device.type != 'cuda':
             raise ValueError(f'no clock for {device.type}: pass timer=')
         timer = card_timer
-    inputs = _inputs(spec, case, live, device, seed)
+    if inputs is None:
+        inputs = _inputs(spec, case, live, device, seed)
     st = case.statics
     kernel = spec.kernel_step or spec.kernel_fn
     plain = spec.reference_step or spec.reference_fn
@@ -177,12 +185,24 @@ def ab_case(spec: KernelSpec, case: KernelCase, *, live: bool = True, device='cu
 def ab_verdict(spec: KernelSpec, *, live: bool = True, device='cuda', seed: int = 0,
                timer: Optional[Callable] = None) -> Dict:
     """The keep / delete / pending record of one kernel: parity at every
-    case's dry arm (and live arm with ``live``), then the A/B at every case."""
+    case's dry arm (and live arm with ``live``), then the A/B at every case.
+    Each case's inputs for the A/B arm are drawn once, on the host, and
+    moved to ``device`` for parity and again for the A/B: the same values
+    (every spec draws with numpy and then moves), without drawing the main
+    path's large leaf sets twice. The cases are drawn side by side in
+    threads (numpy's generators release the interpreter lock; each case has
+    its own, seeded)."""
+    from concurrent.futures import ThreadPoolExecutor
     device = torch.device(device)
     rec: Dict = {'kernel': spec.name, 'regime': spec.regime, 'gate': spec.gate,
                  'backend': device.type, 'backends_claimed': list(spec.backends)}
+    with ThreadPoolExecutor(max_workers=min(8, len(spec.cases))) as pool:
+        drawn = dict(zip((case.name for case in spec.cases),
+                         pool.map(lambda case: _inputs(spec, case, live, 'cpu', seed),
+                                  spec.cases)))
     arms = (False, True) if live else (False,)
-    parity = [parity_check(spec, case, live=arm, device=device, seed=seed)
+    parity = [parity_check(spec, case, live=arm, device=device, seed=seed,
+                           inputs=_on(drawn[case.name], device) if arm == live else None)
               for case in spec.cases for arm in arms]
     rec['parity'] = parity
     rec['parity_max_err'] = max(p['max_abs_err'] for p in parity)
@@ -202,7 +222,8 @@ def ab_verdict(spec: KernelSpec, *, live: bool = True, device='cuda', seed: int 
         rec['reason'] = (f'regime claims {"/".join(spec.backends)}; this run is on '
                          f'{device.type} (parity only): a run on the card settles the gate')
         return rec
-    rec['cases'] = [ab_case(spec, case, live=live, device=device, seed=seed, timer=timer)
+    rec['cases'] = [ab_case(spec, case, live=live, device=device, seed=seed, timer=timer,
+                            inputs=_on(drawn[case.name], device))
                     for case in spec.cases]
     rec['vs_library'] = {c['case']: c['vs_library'] for c in rec['cases']
                          if c['vs_library'] is not None}

@@ -7,6 +7,14 @@ contract (dropout, an additive or per-query mask) raises rather than taking
 a plain path on the card. On the CPU the plain ``_sdpa`` runs, which mirrors
 the JAX package's ``_sdpa``.
 
+q may have another length than k and v (the 'map' pool's latent queries
+over the tokens, ``layers/attention_pool.py``): the flash kernel takes Nq
+queries over Nk keys, so that attention runs on the card too.
+
+The softmax policy (``config.softmax_dtype``, or a layer's
+``softmax_dtype``) reaches the plain ``_sdpa`` only: the flash kernel keeps
+its fp32 online softmax, as the TPU kernel does.
+
 A padded token sequence (NaFlex batches) hands the attention a
 ``SeqPadMask``: the (B, L) valid vector and its mode, in place of the dense
 mask the JAX package builds (``create_attention_mask``). Its keys are a
@@ -71,34 +79,38 @@ def maybe_add_mask(scores: torch.Tensor, attn_mask=None) -> torch.Tensor:
 
 
 def _sdpa(q, k, v, attn_mask=None, dropout_p: float = 0.0, scale: Optional[float] = None,
-          generator: Optional[torch.Generator] = None):
-    """Plain scaled dot-product attention on (B, H, N, D) tensors; dropout on
-    the probabilities draws from ``generator``."""
+          generator: Optional[torch.Generator] = None, softmax_dtype=None):
+    """Plain scaled dot-product attention on (B, H, Nq, D) queries over
+    (B, H, Nk, D) keys and values; dropout on the probabilities draws from
+    ``generator``; the softmax follows the policy (``softmax_dtype`` per
+    call)."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     # JAX rounds a Python scalar to q's dtype before the product; so does a
     # 0-dim tensor of that dtype here
     q = q * torch.tensor(scale, dtype=q.dtype)
     attn = q @ k.transpose(-2, -1)
     attn = maybe_add_mask(attn, attn_mask)
-    attn = softmax_with_policy(attn, dim=-1).to(q.dtype)
+    attn = softmax_with_policy(attn, dim=-1, dtype=softmax_dtype).to(q.dtype)
     attn = dropout(attn, dropout_p, training=True, generator=generator)
     return attn @ v
 
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p: float = 0.0,
                                  scale: Optional[float] = None,
-                                 generator: Optional[torch.Generator] = None):
-    """Dispatcher over (B, H, N, D) q/k/v: the flash kernel on a CUDA device,
-    the plain path on the CPU. A ``SeqPadMask`` goes to the flash kernel (its
-    plain version on the CPU) as a key-padding mask, then in 'symmetric'
-    mode its padded query rows take the mean of v."""
+                                 generator: Optional[torch.Generator] = None,
+                                 softmax_dtype=None):
+    """Dispatcher over (B, H, Nq, D) q and (B, H, Nk, D) k, v: the flash
+    kernel on a CUDA device, the plain path on the CPU. A ``SeqPadMask``
+    goes to the flash kernel (its plain version on the CPU) as a
+    key-padding mask, then in 'symmetric' mode its padded query rows take
+    the mean of v."""
     if isinstance(attn_mask, SeqPadMask):
         if dropout_p == 0.0:
             out = flash_attention(q, k, v, mask=attn_mask.key_mask(), scale=scale)
             return _fill_padded_queries(out, v, attn_mask.valid) if attn_mask.symmetric else out
         attn_mask = attn_mask.dense()  # dropout: the plain path, as JAX's
     if q.device.type != 'cuda':
-        return _sdpa(q, k, v, attn_mask, dropout_p, scale, generator)
+        return _sdpa(q, k, v, attn_mask, dropout_p, scale, generator, softmax_dtype)
     if dropout_p > 0.0:
         raise NotImplementedError(
             'attention dropout on CUDA: the flash-attention kernel has no dropout yet')
@@ -116,9 +128,10 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p: float = 0.0
 
 
 class Attention(nn.Module):
-    """Standard multi-head self-attention with a fused qkv projection and
-    optional qk-norm (``norm_layer`` over the head dim, no dtype, as in
-    JAX)."""
+    """Standard multi-head self-attention with a fused qkv projection,
+    optional qk-norm (``norm_layer`` over the head dim) and optional
+    ``scale_norm`` (``norm_layer`` over the merged heads before ``proj``),
+    both without a dtype, as in JAX."""
 
     def __init__(
             self,
@@ -130,21 +143,25 @@ class Attention(nn.Module):
             attn_drop: float = 0.0,
             proj_drop: float = 0.0,
             norm_layer: Optional[Callable] = None,
+            scale_norm: bool = False,
+            softmax_dtype=None,
             dtype: Optional[torch.dtype] = None,
             generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f'dim {dim} is not divisible by num_heads {num_heads}')
-        if qk_norm and norm_layer is None:
-            raise ValueError('norm_layer must be provided if qk_norm is True')
+        if (qk_norm or scale_norm) and norm_layer is None:
+            raise ValueError('norm_layer must be provided if qk_norm or scale_norm is True')
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         self.scale = self.head_dim ** -0.5
+        self.softmax_dtype = softmax_dtype  # this layer's policy override
         self.qkv = Linear(dim, dim * 3, bias=qkv_bias, dtype=dtype, generator=generator)
         self.q_norm = norm_layer(self.head_dim) if qk_norm else None
         self.k_norm = norm_layer(self.head_dim) if qk_norm else None
         self.attn_drop = Dropout(attn_drop)
+        self.norm = norm_layer(dim) if scale_norm else None
         self.proj = Linear(dim, dim, bias=proj_bias, dtype=dtype, generator=generator)
         self.proj_drop = Dropout(proj_drop)
 
@@ -156,6 +173,9 @@ class Attention(nn.Module):
             q, k = self.q_norm(q), self.k_norm(k)
         dropout_p = self.attn_drop.rate if self.training else 0.0
         x = scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, dropout_p=dropout_p,
-                                         scale=self.scale, generator=self.attn_drop.generator)
+                                         scale=self.scale, generator=self.attn_drop.generator,
+                                         softmax_dtype=self.softmax_dtype)
         x = x.transpose(1, 2).reshape(B, N, C)
+        if self.norm is not None:
+            x = self.norm(x)
         return self.proj_drop(self.proj(x))

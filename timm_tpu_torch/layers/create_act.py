@@ -6,7 +6,8 @@ where those differ: ``silu`` is ``x * sigmoid(x)`` (two roundings in bf16,
 as JAX's, where ``F.silu`` rounds once), ``hard_sigmoid`` is
 ``relu6(x + 3) / 6``, ``hard_swish`` is ``x * hard_sigmoid(x)``, ``mish`` is
 ``x * tanh(softplus(x))`` with JAX's softplus ``log(1 + exp(x))`` (no
-threshold).
+threshold), ``gelu_tanh`` is ``jax.nn.gelu(approximate=True)``'s chain in
+x's dtype, and ``quick_gelu`` is ``x * sigmoid(1.702 x)``.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from typing import Callable, Optional, Union
 
 import torch
 
-__all__ = ['gelu', 'get_act_fn', 'hard_sigmoid', 'hard_swish', 'mish', 'silu']
+__all__ = ['gelu', 'gelu_tanh', 'get_act_fn', 'hard_sigmoid', 'hard_swish', 'mish',
+           'quick_gelu', 'silu']
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -22,6 +24,17 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     out = 0.5 * xf * (1.0 + torch.erf(xf * 0.7071067811865476))
     return out.to(x.dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of GELU, JAX's ops in x's dtype:
+    x * 0.5 (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))."""
+    cdf = 0.5 * (1.0 + torch.tanh(0.7978845608028654 * (x + 0.044715 * (x ** 3))))
+    return x * cdf
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -57,6 +70,8 @@ _ACT_FNS = {
     'relu6': relu6,
     'gelu': gelu,
     'gelu_erf': gelu,
+    'gelu_tanh': gelu_tanh,
+    'quick_gelu': quick_gelu,
     'sigmoid': torch.sigmoid,
     'tanh': torch.tanh,
     'silu': silu,
@@ -68,8 +83,7 @@ _ACT_FNS = {
     'hardsigmoid': hard_sigmoid,
 }
 # the JAX map's other names, ported with the first model that selects one
-_QUEUED = ('leaky_relu', 'elu', 'celu', 'selu', 'gelu_tanh', 'quick_gelu', 'hard_mish',
-           'softplus')
+_QUEUED = ('leaky_relu', 'elu', 'celu', 'selu', 'hard_mish', 'softplus')
 
 
 def get_act_fn(name: Union[str, Callable, None] = 'relu') -> Optional[Callable]:

@@ -11,6 +11,10 @@ with its CUDA graph, so each replay draws new masks and advances the
 generator exactly as an eager step does; ``get_state`` / ``set_state``
 (what a checkpoint keeps) stay valid between replays.
 
+Under gradient checkpointing every draw is recorded on the forward and read
+back by the recompute (``layers/recompute.py``), so a checkpointed step
+draws the same masks and leaves the generator where a plain step leaves it.
+
 Kept values are computed as the JAX package computes them:
 ``where(mask, x / keep_prob, 0)`` with ``keep_prob`` rounded to x's dtype
 (JAX's weakly typed scalar), so a bf16 activation is divided by
@@ -22,6 +26,8 @@ from typing import List, Optional, Union
 
 import torch
 from torch import nn
+
+from .recompute import draw
 
 __all__ = ['DropPath', 'Dropout', 'apply_keep_mask', 'calculate_drop_path_rates', 'drop_path',
            'dropout', 'get_drop_generator', 'set_drop_generator']
@@ -41,7 +47,7 @@ def _keep_mask(shape, keep_prob: float, device, generator: Optional[torch.Genera
         raise RuntimeError(
             f'{what} in training mode needs a torch.Generator: build the model with '
             'create_model(..., seed=...) or call set_drop_generator(model, generator)')
-    return torch.rand(shape, generator=generator, device=device) < keep_prob
+    return draw(lambda: torch.rand(shape, generator=generator, device=device) < keep_prob)
 
 
 def drop_path(x: torch.Tensor, drop_prob: float = 0.0, training: bool = False,
@@ -69,6 +75,8 @@ def dropout(x: torch.Tensor, rate: float = 0.0, training: bool = False,
 
 
 class DropPath(nn.Module):
+    draws_masks = True  # set_drop_generator gives it the model's generator
+
     def __init__(self, drop_prob: float = 0.0, scale_by_keep: bool = True,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -82,6 +90,7 @@ class DropPath(nn.Module):
 
 class Dropout(nn.Module):
     """Dropout with flax's formula and an explicit generator."""
+    draws_masks = True
 
     def __init__(self, rate: float = 0.0, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -93,20 +102,21 @@ class Dropout(nn.Module):
 
 
 def set_drop_generator(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Give every DropPath and Dropout under ``module`` the generator its
-    masks are drawn from (one shared stream, drawn in forward order)."""
+    """Give every layer under ``module`` that draws masks (DropPath,
+    Dropout, PatchDropout: ``draws_masks``) the generator they are drawn from
+    (one shared stream, drawn in forward order)."""
     for m in module.modules():
-        if isinstance(m, (DropPath, Dropout)):
+        if getattr(m, 'draws_masks', False):
             m.generator = generator
     return module
 
 
 def get_drop_generator(module: nn.Module) -> Optional[torch.Generator]:
-    """The generator the DropPath and Dropout modules under ``module`` draw
+    """The generator the mask-drawing layers under ``module`` draw
     from (None without such modules); more than one raises, since a
     checkpoint stores one stream."""
     gens = {id(m.generator): m.generator for m in module.modules()
-            if isinstance(m, (DropPath, Dropout)) and m.generator is not None}
+            if getattr(m, 'draws_masks', False) and m.generator is not None}
     if len(gens) > 1:
         raise RuntimeError('the drop layers draw from more than one generator; '
                            'give them one with set_drop_generator')

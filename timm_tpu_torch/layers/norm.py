@@ -15,6 +15,12 @@ flax's and the JAX package's, module by module:
   dtype, whatever the parameters.
 - ``GroupNorm`` (flax ``nnx.GroupNorm``): as LayerNorm, over (H, W) and the
   channels of each group.
+- The statistics policy (``config.norm_internal_dtype``, or an instance's
+  ``internal_dtype``): when it names a dtype other than fp32, LayerNorm,
+  RmsNorm and SimpleNorm take their statistics and the whole chain in that
+  dtype and return x's dtype, the JAX package's ``_layernorm_fast`` /
+  ``_rmsnorm_fast``; LayerNormFp32 is pinned to fp32. Unset (the default),
+  the paths above run untouched.
 - ``BatchNorm2d`` (flax ``nnx.BatchNorm`` with torch-style momentum, flax's
   decay = 1 - momentum). The compute dtype ``ct`` is ``dtype``, else the
   promotion of the input's and fp32. In training the batch statistics are
@@ -28,7 +34,9 @@ flax's and the JAX package's, module by module:
   whole chain runs in ``ct`` (bf16 under a bf16 ``dtype``). There is no
   ``num_batches_tracked``. The statistics are ``running_mean`` and
   ``running_var`` buffers updated in place with no host read, so a CUDA
-  graph capture of a train step records their update.
+  graph capture of a train step records their update. A gradient
+  checkpoint's recompute (``layers/recompute.py``) normalises with the batch
+  statistics again but does not update the running ones a second time.
 """
 from __future__ import annotations
 
@@ -37,25 +45,63 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .config import norm_internal_dtype, resolve_dtype_arg
 from .linear import compute_dtype
+from .recompute import recomputing
 
 __all__ = ['BatchNorm2d', 'GroupNorm', 'GroupNorm1', 'LayerNorm', 'LayerNorm2d', 'LayerNormFp32',
            'RmsNorm', 'RmsNorm2d', 'SimpleNorm', 'SimpleNorm2d']
 
 
+def _resolve_internal(instance_dtype) -> Optional[torch.dtype]:
+    """The instance's statistics dtype, else the process policy's; None
+    (or fp32) is the default fp32 path."""
+    dt = instance_dtype if instance_dtype is not None else norm_internal_dtype()
+    return None if dt is None or dt == torch.float32 else dt
+
+
+def _layernorm_fast(x, weight, bias, eps: float, dt: torch.dtype) -> torch.Tensor:
+    """LayerNorm with its statistics in ``dt`` (E[x^2] - E[x]^2, clamped
+    at 0); x's dtype out."""
+    xf = x.to(dt)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp_min((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
+    y = (xf - mean) * torch.rsqrt(var + torch.tensor(eps, dtype=dt))
+    if weight is not None:
+        y = y * weight.to(dt)
+    if bias is not None:
+        y = y + bias.to(dt)
+    return y.to(x.dtype)
+
+
+def _rmsnorm_fast(x, weight, eps: float, dt: torch.dtype) -> torch.Tensor:
+    """RMSNorm with the mean square in ``dt``; x's dtype out."""
+    xf = x.to(dt)
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + torch.tensor(eps, dtype=dt))
+    if weight is not None:
+        y = y * weight.to(dt)
+    return y.to(x.dtype)
+
+
 class LayerNorm(nn.Module):
     """LayerNorm with flax's numerics: mean and variance in fp32 as
-    E[x^2] - E[x]^2, clamped at 0 (see the module docstring for dtypes)."""
+    E[x^2] - E[x]^2, clamped at 0 (see the module docstring for dtypes).
+    ``internal_dtype`` pins this instance's statistics dtype over the
+    process policy."""
 
     def __init__(self, num_channels: int, eps: float = 1e-6, dtype: Optional[torch.dtype] = None,
-                 affine: bool = True):
+                 affine: bool = True, internal_dtype=None):
         super().__init__()
         self.eps = eps
         self.compute_dtype = dtype
+        self.internal_dtype = resolve_dtype_arg(internal_dtype)
         self.weight = nn.Parameter(torch.ones(num_channels)) if affine else None
         self.bias = nn.Parameter(torch.zeros(num_channels)) if affine else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _resolve_internal(self.internal_dtype)
+        if dt is not None:
+            return _layernorm_fast(x, self.weight, self.bias, self.eps, dt)
         ct = compute_dtype(x, self.compute_dtype, x if self.weight is None else self.weight)
         xf = x.to(ct).float()
         mean = xf.mean(dim=-1, keepdim=True)
@@ -76,19 +122,25 @@ class LayerNormFp32(LayerNorm):
     """LayerNorm pinned to fp32: fp32 statistics and an fp32 output."""
 
     def __init__(self, num_channels: int, eps: float = 1e-6):
-        super().__init__(num_channels, eps=eps, dtype=torch.float32)
+        super().__init__(num_channels, eps=eps, dtype=torch.float32, internal_dtype=torch.float32)
 
 
 class RmsNorm(nn.Module):
-    """x * rsqrt(mean(x^2) + eps) * weight, flax's ``nnx.RMSNorm`` (no bias)."""
+    """x * rsqrt(mean(x^2) + eps) * weight, flax's ``nnx.RMSNorm`` (no bias);
+    ``internal_dtype`` as in LayerNorm."""
 
-    def __init__(self, num_channels: int, eps: float = 1e-6, dtype: Optional[torch.dtype] = None):
+    def __init__(self, num_channels: int, eps: float = 1e-6, dtype: Optional[torch.dtype] = None,
+                 internal_dtype=None):
         super().__init__()
         self.eps = eps
         self.compute_dtype = dtype
+        self.internal_dtype = resolve_dtype_arg(internal_dtype)
         self.weight = nn.Parameter(torch.ones(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _resolve_internal(self.internal_dtype)
+        if dt is not None:
+            return _rmsnorm_fast(x, self.weight, self.eps, dt)
         ct = compute_dtype(x, self.compute_dtype, self.weight)
         xf = x.to(ct).float()
         mul = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + self.eps)
@@ -102,15 +154,18 @@ class SimpleNorm(nn.Module):
     """x * rsqrt(var(x) + eps) * weight with the unbiased variance (ddof 1)
     and no mean subtraction of x itself; not RMSNorm. Output in x's dtype."""
 
-    def __init__(self, num_channels: int, eps: float = 1e-6):
+    def __init__(self, num_channels: int, eps: float = 1e-6, internal_dtype=None):
         super().__init__()
         self.eps = eps
+        self.internal_dtype = resolve_dtype_arg(internal_dtype)
         self.weight = nn.Parameter(torch.ones(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        xf = xf * torch.rsqrt(xf.var(dim=-1, keepdim=True, correction=1) + self.eps)
-        return (xf * self.weight.float()).to(x.dtype)
+        dt = _resolve_internal(self.internal_dtype) or torch.float32
+        xf = x.to(dt)
+        xf = xf * torch.rsqrt(xf.var(dim=-1, keepdim=True, correction=1)
+                              + torch.tensor(self.eps, dtype=dt))
+        return (xf * self.weight.to(dt)).to(x.dtype)
 
 
 SimpleNorm2d = SimpleNorm
@@ -207,9 +262,10 @@ class BatchNorm2d(nn.Module):
                               w, bias).to(ct)
         mean, var = _fast_stats(x.to(_stats_dtype(x)), tuple(range(x.ndim - 1)))
         decay = 1.0 - self.momentum
-        with torch.no_grad():
-            self.running_mean.copy_(decay * self.running_mean + (1.0 - decay) * mean)
-            self.running_var.copy_(decay * self.running_var + (1.0 - decay) * var)
+        if not recomputing():
+            with torch.no_grad():
+                self.running_mean.copy_(decay * self.running_mean + (1.0 - decay) * mean)
+                self.running_var.copy_(decay * self.running_var + (1.0 - decay) * var)
         return _normalize(x, mean, var, self.eps, w, bias).to(ct)
 
     def extra_repr(self) -> str:

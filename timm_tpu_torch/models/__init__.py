@@ -8,8 +8,14 @@ from ._registry import (
     generate_default_cfgs, get_pretrained_cfg, is_model, list_models, model_entrypoint,
     register_model, split_model_name_tag,
 )
+from ._features import FeatureGetterNet, FeatureInfo
+from ._manipulate import checkpoint_seq
 from .convnext import ConvNeXt
+from .deit import VisionTransformerDistilled
 from .naflexvit import NaFlexVit
 from .resnet import ResNet
 from .efficientnet import EfficientNet
-from .vision_transformer import Block, VisionTransformer
+from .vision_transformer import (
+    Block, DiffParallelScalingBlock, ParallelScalingBlock, ParallelThingsBlock, ResPostBlock,
+    VisionTransformer,
+)

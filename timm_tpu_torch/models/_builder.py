@@ -7,6 +7,11 @@ device. The drop-path and dropout masks of training mode draw from a second
 generator on ``device``, seeded with ``seed`` too. ``device`` defaults to
 ``cuda``; ``device='meta'`` builds the module tree with shapes and no
 storage (no draws, no drop generator), for callers that need shapes only.
+
+``features_only=True`` wraps the model in ``FeatureGetterNet`` over its
+``forward_intermediates`` (``_features.py``), with the entrypoint's
+``feature_cfg`` (``out_indices``; a caller's ``out_indices`` and
+``feature_cls`` override it), as the JAX builder does, for every family.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 
 from .._device import resolve_device
 from ..layers.drop import set_drop_generator
+from ._features import FeatureGetterNet
 from ._pretrained import PretrainedCfg
 from ._registry import get_pretrained_cfg
 
@@ -54,6 +60,7 @@ def build_model_with_cfg(
         pretrained: bool = False,
         pretrained_cfg=None,
         pretrained_cfg_overlay: Optional[Dict] = None,
+        feature_cfg: Optional[Dict] = None,
         seed: int = 0,
         device=None,
         **kwargs,
@@ -65,6 +72,14 @@ def build_model_with_cfg(
     dev = resolve_device(device)
     cfg = resolve_pretrained_cfg(variant, pretrained_cfg, pretrained_cfg_overlay)
     _update_default_model_kwargs(cfg, kwargs)
+    feature_cfg = dict(feature_cfg or {})
+    features = kwargs.pop('features_only', False)
+    if features:
+        feature_cfg.setdefault('out_indices', (0, 1, 2, 3, 4))
+        if 'out_indices' in kwargs:
+            feature_cfg['out_indices'] = kwargs.pop('out_indices')
+        if 'feature_cls' in kwargs:
+            feature_cfg['feature_cls'] = kwargs.pop('feature_cls')
     if dev.type == 'meta':
         # shapes only (the counterpart of nnx.eval_shape): no storage, no draws
         with torch.device('meta'):
@@ -73,6 +88,8 @@ def build_model_with_cfg(
         model = model_cls(generator=torch.Generator().manual_seed(int(seed)), **kwargs)
     model.pretrained_cfg = cfg
     model.default_cfg = cfg.to_dict()
+    if features:
+        model = FeatureGetterNet(model, **feature_cfg)
     if dev.type == 'meta':
         return model
     model = model.to(dev)

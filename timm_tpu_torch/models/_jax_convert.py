@@ -18,7 +18,13 @@ NaFlexVit's ``embeds.proj`` is a Linear on both sides (its (P*P*C, D)
 kernel transposes as any); its ``embeds.pos_embed_y`` / ``_x`` / ``_grid``,
 ``cls_token`` and ``reg_token``, and DiffAttention's 0-d ``lambda_a`` /
 ``lambda_b`` and 1-d ``lambda_q1`` .. ``lambda_k2``, carry over as they
-are (its ``sub_norm.scale`` becomes ``sub_norm.weight``).
+are (its ``sub_norm.scale`` becomes ``sub_norm.weight``). The ViT family's
+other parameters follow the same rules by name: the 'map' pool's
+``attn_pool.latent`` (carried as it is) and its ``q`` / ``kv`` / ``proj`` /
+``mlp`` kernels, the parallel blocks' fused ``in_proj`` kernel and
+``mlp_bias``, ``attns.<i>.*`` / ``ffns.<i>.*``, SwiGLU's ``fc1_g`` /
+``fc1_x``, the patch embedding's ``norm``, DeiT's ``dist_token`` and
+``head_dist``; ``load_jax_state_dict`` loads them strictly.
 
 Task checkpoints (``convert_jax_checkpoint``): the single flat dict of
 ``timm_tpu.task.TrainingTask.get_checkpoint_state`` becomes the port's

@@ -1,5 +1,7 @@
-"""Parameter grouping by a model's ``group_matcher`` (counterpart of
-timm_tpu/models/_manipulate.py ``group_with_matcher`` / ``named_parameters``).
+"""Parameter grouping by a model's ``group_matcher`` and gradient
+checkpointing of a block sequence (counterpart of
+timm_tpu/models/_manipulate.py ``group_with_matcher`` / ``named_parameters``
+/ ``checkpoint_seq``).
 
 Names are the port's parameter names; a ``group_matcher`` spec is the same
 regex structure as the JAX package's, and its patterns only read the parts
@@ -11,11 +13,15 @@ from __future__ import annotations
 import collections.abc
 import re
 from collections import defaultdict
-from typing import Callable, Dict, Iterable, Tuple, Union
+from typing import Callable, Dict, Iterable, Sequence, Tuple, Union
 
+import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-__all__ = ['MATCH_PREV_GROUP', 'group_with_matcher', 'named_parameters']
+from ..layers.recompute import checkpoint_contexts
+
+__all__ = ['MATCH_PREV_GROUP', 'checkpoint_seq', 'group_with_matcher', 'named_parameters']
 
 MATCH_PREV_GROUP = (99999,)
 
@@ -87,3 +93,40 @@ def group_with_matcher(
             raise ValueError('reverse mapping only supported for name output')
         return {n: lid_ for lid_, names in layer_id_to_param.items() for n in names}
     return layer_id_to_param
+
+
+def _run_modules(modules: Sequence[Callable], x):
+    for m in modules:
+        x = m(x)
+    return x
+
+
+def checkpoint_seq(functions: Iterable[Callable], x: torch.Tensor, every: int = 1,
+                   skip_last: bool = False) -> torch.Tensor:
+    """Apply a sequence of modules to ``x``, recomputing each run of
+    ``every`` of them in the backward pass instead of keeping its
+    activations (``torch.utils.checkpoint`` without reentrance), the
+    counterpart of JAX's ``nnx.remat`` chunks. ``skip_last`` runs the last
+    module plainly.
+
+    The drop layers' draws from the model's own generator are recorded on
+    the forward and read back by the recompute, and a BatchNorm's running
+    statistics are updated once (``layers/recompute.py``), so the gradients,
+    the generator's state and the statistics are those of the same step
+    without checkpointing. Checkpoint's own RNG preservation covers only the
+    default generators, which no layer of the port draws from, so it is off:
+    it would also read the default CUDA generator's state, which a CUDA
+    graph capture of the step does not allow.
+
+    Block scan is accepted by the models and runs this same loop (the same
+    numbers): under a CUDA graph the step is captured once and replayed, so
+    the trace time that JAX's scan saves is not paid here."""
+    functions = list(functions)
+    end = len(functions) - 1 if skip_last else len(functions)
+    for start in range(0, end, every):
+        chunk = tuple(functions[start:min(start + every, end)])
+        x = checkpoint(_run_modules, chunk, x, use_reentrant=False, preserve_rng_state=False,
+                       context_fn=checkpoint_contexts)
+    if skip_last:
+        x = functions[-1](x)
+    return x

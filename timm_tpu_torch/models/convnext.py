@@ -18,7 +18,9 @@ get_classifier, reset_classifier, forward_features, forward_head,
 forward_intermediates, prune_intermediate_layers), the default cfgs and
 every registered entrypoint. ``conv_mlp`` is accepted and ignored, and
 ``head_init_scale`` accepted and unused, as in JAX. Gradient checkpointing
-and stage scan raise (ROADMAP A.5.7); ``checkpoint_filter_fn`` maps upstream
+runs each stage's blocks through ``checkpoint_seq``; stage scan (block scan)
+is accepted and runs the same loop, as a CUDA graph captures the step once;
+``features_only`` takes the four stages; ``checkpoint_filter_fn`` maps upstream
 torch timm names and needs a hub (ROADMAP A.5.1): weights come from the
 JAX package through ``load_jax_state_dict``.
 """
@@ -37,14 +39,10 @@ from ..layers import (
 )
 from ._builder import build_model_with_cfg
 from ._features import feature_take_indices
+from ._manipulate import checkpoint_seq
 from ._registry import generate_default_cfgs, register_model
 
 __all__ = ['ConvNeXt', 'ConvNeXtBlock', 'ConvNeXtStage', 'Downsample']
-
-
-def _no_scan(what: str):
-    return NotImplementedError(f'{what} is not ported yet (ROADMAP A.5.7, with checkpoint_seq '
-                               'and block / stage scan)')
 
 
 class Downsample(nn.Module):
@@ -142,10 +140,14 @@ class ConvNeXtStage(nn.Module):
                 conv_bias=conv_bias, use_grn=use_grn, act_layer=act_layer, norm_layer=norm_layer,
                 dtype=dtype, generator=generator)
             for i in range(depth)])
+        self.grad_checkpointing = False
+        self.stage_scan = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.downsample_norm is not None:
             x = self.downsample_conv(self.downsample_norm(x))
+        if self.grad_checkpointing:
+            return checkpoint_seq(self.blocks, x)
         for blk in self.blocks:
             x = blk(x)
         return x
@@ -182,8 +184,6 @@ class ConvNeXt(nn.Module):
         super().__init__()
         if output_stride not in (8, 16, 32):
             raise ValueError(f'output_stride {output_stride} not in (8, 16, 32)')
-        if stage_scan:
-            raise _no_scan('stage_scan')
         if isinstance(kernel_sizes, int):
             kernel_sizes = (kernel_sizes,) * 4
         # conv_mlp only picks the upstream torch layout of the MLP; on NHWC a
@@ -234,6 +234,7 @@ class ConvNeXt(nn.Module):
             prev_chs = out_chs
             self.feature_info += [dict(num_chs=prev_chs, reduction=curr_stride, module=f'stages.{i}')]
         self.stages = nn.ModuleList(stages)
+        self.set_stage_scan(bool(stage_scan))
 
         self.num_features = self.head_hidden_size = prev_chs
         if head_norm_first:
@@ -264,12 +265,14 @@ class ConvNeXt(nn.Module):
         )
 
     def set_grad_checkpointing(self, enable: bool = True):
-        if enable:
-            raise _no_scan('gradient checkpointing')
+        for s in self.stages:
+            s.grad_checkpointing = enable
 
     def set_stage_scan(self, enable: bool = True):
-        if enable:
-            raise _no_scan('stage scan')
+        """Accepted for the JAX contract; the stages run their block loop
+        either way (a CUDA graph captures the step once)."""
+        for s in self.stages:
+            s.stage_scan = enable
 
     set_block_scan = set_stage_scan
 
@@ -446,9 +449,9 @@ default_cfgs = generate_default_cfgs({
 
 
 def _create_convnext(variant: str, pretrained: bool = False, **kwargs) -> ConvNeXt:
-    # out_indices configures features_only, which is not ported (ROADMAP A.5.7)
-    kwargs.pop('out_indices', None)
-    return build_model_with_cfg(ConvNeXt, variant, pretrained, **kwargs)
+    out_indices = kwargs.pop('out_indices', (0, 1, 2, 3))
+    return build_model_with_cfg(ConvNeXt, variant, pretrained,
+                                feature_cfg=dict(out_indices=out_indices), **kwargs)
 
 
 def _entry(variant: str, **model_args):

@@ -20,8 +20,10 @@ every registered entrypoint of the JAX module. Three raise, because a layer
 they need comes with the rest of the zoo (ROADMAP A.5.9):
 ``efficientnet_blur_b0`` (blur pool), ``gc_efficientnetv2_rw_t`` (the 'gc'
 attention) and ``test_efficientnet_evos`` (EvoNorm). Gradient
-checkpointing and ``features_only`` raise (ROADMAP A.5.7);
-``checkpoint_filter_fn`` maps upstream torch timm names and needs a hub
+checkpointing runs each stage through ``checkpoint_seq`` (the running
+statistics are written once a step); ``features_only`` takes the JAX
+feature points (the five stride levels of a 7-stack net, else every
+stack); ``checkpoint_filter_fn`` maps upstream torch timm names and needs a hub
 (ROADMAP A.5.1): weights come from the JAX package through
 ``load_jax_state_dict``.
 """
@@ -43,6 +45,7 @@ from ._efficientnet_builder import (
     round_channels,
 )
 from ._features import feature_take_indices
+from ._manipulate import checkpoint_seq
 from ._registry import generate_default_cfgs, register_model
 
 __all__ = ['EfficientNet']
@@ -95,6 +98,7 @@ class EfficientNet(nn.Module):
             drop_path_rate=drop_path_rate, dtype=dtype, generator=generator)
         self.blocks = nn.Sequential(*builder(stem_size, block_args))
         self.feature_info = builder.features
+        self.grad_checkpointing = False
         head_chs = builder.in_chs
 
         # num_features == 0: no head conv
@@ -126,9 +130,7 @@ class EfficientNet(nn.Module):
         )
 
     def set_grad_checkpointing(self, enable: bool = True):
-        if enable:
-            raise NotImplementedError('gradient checkpointing is not ported yet (ROADMAP A.5.7, '
-                                      'with checkpoint_seq)')
+        self.grad_checkpointing = enable
 
     def get_classifier(self) -> Optional[nn.Module]:
         return self.classifier
@@ -146,7 +148,8 @@ class EfficientNet(nn.Module):
     def forward_features(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) -> (B, H/32, W/32, num_features)."""
         x = self.bn1(self.conv_stem(x))
-        x = self.blocks(x)
+        for stage in self.blocks:
+            x = checkpoint_seq(stage, x) if self.grad_checkpointing else stage(x)
         if self.conv_head is not None:
             x = self.bn2(self.conv_head(x))
         return x
@@ -199,14 +202,15 @@ class EfficientNet(nn.Module):
 def _create_effnet(variant, pretrained=False, **kwargs):
     """The common builder: the TF-origin BatchNorm overrides (``bn_eps``,
     ``bn_momentum``, ``bn_tf``) go into the norm layer."""
-    if kwargs.pop('features_only', False):
-        raise NotImplementedError('features_only is not ported yet (ROADMAP A.5.7)')
-    kwargs.pop('out_indices', None)
     kwargs.pop('pruned', None)  # pruned checkpoints need a hub (ROADMAP A.5.1)
     bn_args = resolve_bn_args(kwargs)
     if bn_args:
         kwargs['norm_layer'] = partial(BatchNormAct2d, **bn_args)
-    return build_model_with_cfg(EfficientNet, variant, pretrained, **kwargs)
+    n_stacks = len(kwargs.get('block_args', ()))
+    # a 7-stack net exposes its 5 stride levels, a shorter one every stack
+    out_indices = (1, 2, 3, 4, 5) if n_stacks == 7 else tuple(range(n_stacks))
+    return build_model_with_cfg(EfficientNet, variant, pretrained,
+                                feature_cfg=dict(out_indices=out_indices), **kwargs)
 
 
 def _gen_efficientnet(variant, channel_multiplier=1.0, depth_multiplier=1.0, channel_divisor=8, group_size=None, pretrained=False, **kwargs):

@@ -37,8 +37,10 @@ Traps, where the JAX package is not torch timm:
 Ported: the model, its contract (no_weight_decay, group_matcher,
 get_classifier, reset_classifier, forward_features, forward_head,
 forward_intermediates, prune_intermediate_layers), the default cfgs and
-every entrypoint of the JAX module. Gradient checkpointing and
-``features_only`` raise (ROADMAP A.5.7); ``checkpoint_filter_fn`` maps
+every entrypoint of the JAX module. Gradient checkpointing runs each stage
+through ``checkpoint_seq`` (the running statistics are written once a
+step); ``features_only`` takes the stem and the four stages;
+``checkpoint_filter_fn`` maps
 upstream torch timm names and needs a hub (ROADMAP A.5.1): weights come from
 the JAX package through ``load_jax_state_dict``.
 """
@@ -59,13 +61,10 @@ from ..layers import (
 )
 from ._builder import build_model_with_cfg
 from ._features import feature_take_indices
+from ._manipulate import checkpoint_seq
 from ._registry import generate_default_cfgs, register_model
 
 __all__ = ['ResNet', 'BasicBlock', 'Bottleneck']
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f'{what} is not ported yet (ROADMAP A.5.7)')
 
 
 def _same_end_pad(size: int, k: int, s: int) -> int:
@@ -294,6 +293,7 @@ class ResNet(nn.Module):
             self.bn_stem = None
         self.bn1 = norm_act(inplanes)
         self.feature_info = [dict(num_chs=inplanes, reduction=2, module='bn1')]
+        self.grad_checkpointing = False
 
         # stem pooling: a 3x3 / 2 max pool, a strided conv (+ norm / act) in
         # its place, or anti-aliasing after or in place of it
@@ -369,8 +369,7 @@ class ResNet(nn.Module):
                     blocks=r'^layer(\d+)' if coarse else r'^layer(\d+)\.(\d+)')
 
     def set_grad_checkpointing(self, enable: bool = True):
-        if enable:
-            raise _not_ported('gradient checkpointing')
+        self.grad_checkpointing = enable
 
     def get_classifier(self) -> Optional[nn.Module]:
         return self.head.fc
@@ -410,8 +409,11 @@ class ResNet(nn.Module):
         """(B, H, W, C) -> (B, H/32, W/32, num_features) at output_stride 32."""
         x = self._stem(x)
         for stage in self._stages():
-            for b in stage:
-                x = b(x)
+            if self.grad_checkpointing:
+                x = checkpoint_seq(stage, x)
+            else:
+                for b in stage:
+                    x = b(x)
         return x
 
     def forward_head(self, x: torch.Tensor, pre_logits: bool = False) -> torch.Tensor:
@@ -586,10 +588,8 @@ default_cfgs = generate_default_cfgs({
 
 
 def _create_resnet(variant: str, pretrained: bool = False, **kwargs) -> ResNet:
-    if kwargs.pop('features_only', False):
-        raise _not_ported('features_only')
-    kwargs.pop('out_indices', None)
-    return build_model_with_cfg(ResNet, variant, pretrained, **kwargs)
+    return build_model_with_cfg(ResNet, variant, pretrained,
+                                feature_cfg=dict(out_indices=(0, 1, 2, 3, 4)), **kwargs)
 
 
 @register_model

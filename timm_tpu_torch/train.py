@@ -102,7 +102,8 @@ def make_parser():
     group.add_argument('--grad-accum-steps', type=int, default=1, metavar='N')
     group.add_argument('--grad-checkpointing', action='store_true', default=False)
     group.add_argument('--block-scan', action='store_true', default=False,
-                       help='not ported (ROADMAP A.5.7)')
+                       help="accepted: the model's block loop runs inside the captured step "
+                            'either way')
     group.add_argument('--fused-update', action='store_true', default=False,
                        help='requires --opt adamw with no lookahead, caution or layer decay, '
                             "as the JAX script's does; otherwise changes nothing: the port's "
@@ -273,7 +274,7 @@ class ParseKwargs(argparse.Action):
 # raises when set away from its default
 _UNPORTED = (
     ('pretrained', 'A.5.1: no hub; carry weights with --initial-checkpoint'),
-    ('grad_checkpointing', 'A.5.7'), ('block_scan', 'A.5.7'), ('distill', 'A.5.10'),
+    ('distill', 'A.5.10'),
     ('fsdp', 'A.5.11'), ('tp', 'A.5.11'), ('distributed', 'A.5.11'), ('elastic', 'A.5.11'),
     ('nonfinite_rollback', 'A.5.11'),
     ('autotune', 'A.5.12'), ('autotune_probe_top_k', 'A.5.12'), ('log_wandb', 'A.5.12'),
@@ -402,6 +403,10 @@ def main(argv=None) -> int:
                 raise
     if model is None:
         model = create_model(args.model, **factory_kwargs, **model_kwargs)
+    if args.grad_checkpointing:
+        model.set_grad_checkpointing(True)
+    if args.block_scan and hasattr(model, 'set_block_scan'):
+        model.set_block_scan(True)
     if args.initial_checkpoint:
         load_checkpoint(model, args.initial_checkpoint)
     if args.num_classes is None:

@@ -19,9 +19,12 @@ did (``test_time_pool``). A checkpoint of a ``--split-bn`` run loads into
 the plain model: its aux statistics are left out (eval uses the primary
 ones only; the JAX script refuses such a checkpoint).
 
-``--quantize``, ``--real-labels``, ``--fsdp``, ``--tp``, ``--block-scan``
-and ``--pretrained`` raise ``NotImplementedError`` naming their ROADMAP
-item.
+``--quantize``, ``--real-labels``, ``--fsdp``, ``--tp`` and
+``--pretrained`` raise ``NotImplementedError`` naming their ROADMAP item.
+``--block-scan`` is accepted (the block loop runs as a graph replay either
+way). ``--model-kwargs`` (the train script's flag, which the JAX validate
+lacks) passes the model arguments a checkpoint was trained with, such as a
+cut ``depth=``.
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ import time
 from collections import OrderedDict
 
 import torch
+
+from .train import ParseKwargs
 
 _logger = logging.getLogger('validate')
 
@@ -57,6 +62,8 @@ parser.add_argument('--mean', type=float, nargs='+', default=None, metavar='MEAN
 parser.add_argument('--std', type=float, nargs='+', default=None, metavar='STD')
 parser.add_argument('--interpolation', default='', type=str, metavar='NAME')
 parser.add_argument('--num-classes', type=int, default=None)
+parser.add_argument('--model-kwargs', nargs='*', default={}, action=ParseKwargs,
+                    help='model arguments, key=value (as the train script takes them)')
 parser.add_argument('--class-map', default='', type=str, metavar='FILENAME')
 parser.add_argument('-j', '--workers', default=4, type=int, metavar='N')
 parser.add_argument('--log-freq', default=20, type=int, metavar='N')
@@ -72,7 +79,7 @@ parser.add_argument('--model-list', default='', type=str, metavar='FILENAME or W
 parser.add_argument('--retry', default=False, action='store_true',
                     help='halve batch size and retry when the card runs out of memory')
 parser.add_argument('--block-scan', action='store_true', default=False,
-                    help='not ported (ROADMAP A.5.7)')
+                    help="accepted: the model's block loop runs as a CUDA graph replay either way")
 parser.add_argument('--device-prefetch', type=int, default=0, metavar='N',
                     help='keep N batches in flight on the device while the step runs; 0 disables')
 parser.add_argument('--quantize', default='', type=str, choices=['', 'int8'],
@@ -85,7 +92,6 @@ parser.add_argument('--tp', type=int, default=0, metavar='N', help='not ported (
 _UNPORTED = (
     ('pretrained', 'A.5.1: no hub; pass --checkpoint'), ('quantize', 'A.5.10'),
     ('real_labels', 'A.5.1'), ('fsdp', 'A.5.11'), ('tp', 'A.5.11'),
-    ('block_scan', 'A.5.7'),
 )
 
 
@@ -101,13 +107,16 @@ def build_model(args, device):
     with ``--checkpoint`` loaded, in eval mode."""
     from .models import create_model, load_checkpoint
     dtype = torch.bfloat16 if args.amp else None
-    kwargs = dict(num_classes=args.num_classes, dtype=dtype, device=device)
+    kwargs = dict(num_classes=args.num_classes, dtype=dtype, device=device,
+                  **getattr(args, 'model_kwargs', {}))
     try:
         model = create_model(args.model, img_size=args.img_size, **kwargs)
     except TypeError as e:
         if 'img_size' not in str(e):
             raise
         model = create_model(args.model, **kwargs)
+    if getattr(args, 'block_scan', False) and hasattr(model, 'set_block_scan'):
+        model.set_block_scan(True)
     if args.checkpoint:
         load_checkpoint(model, args.checkpoint, use_ema=args.use_ema)
     return model.eval()
